@@ -1,0 +1,65 @@
+"""The port stands alone: every module of advmix_tpu_torch, and
+chip_smoke.py, import with `jax`, its libraries and `advmix_tpu` blocked;
+and without a card the entry points refuse to run unless asked for the
+CPU."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+W32 = os.path.join(ROOT, "experiments/coco/hrnet/w32_256x192_advmix.yaml")
+NO_CARD = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+
+BLOCKED_IMPORTS = r"""
+import importlib, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "advmix_tpu")
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import advmix_tpu_torch
+
+names = [m.name for m in pkgutil.walk_packages(advmix_tpu_torch.__path__,
+                                               "advmix_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_IMPORTS], cwd=ROOT,
+                          env=NO_CARD, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.strip()) >= 25  # every module was walked
+
+
+def test_entry_point_without_card_raises(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-m", "advmix_tpu_torch.tools.validate", "--cfg",
+         W32], cwd=str(tmp_path), env=NO_CARD, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr
+    assert not os.listdir(tmp_path)  # it stopped before writing anything
+
+
+def test_chip_smoke_without_card_fails(tmp_path):
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                          cwd=str(tmp_path), env=NO_CARD, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
