@@ -28,13 +28,26 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-MAX_JOINTS = 128  # = kMaxJoints in csrc/oks.cu
+_F = ctypes.c_float
+MAX_JOINTS = 128  # = kMaxJoints in csrc/timing.cu
 
 
 class InvVar(ctypes.Structure):
-    """csrc/oks.cu's per-joint 1/(2 sigma)^2 table, passed to the kernel by
-    value so that a launch copies nothing to the device first."""
-    _fields_ = [("v", ctypes.c_float * MAX_JOINTS)]
+    """csrc/timing.cu's per-joint 1/(2 sigma)^2 table, which the baseline
+    OKS kernel takes by value in its launch parameters."""
+    _fields_ = [("v", _F * MAX_JOINTS)]
+
+
+# argument types of every `extern "C"` entry of csrc/*.cu; each returns the
+# CUDA error code of its launch
+SIGNATURES = {
+    "advmix_decode_heatmaps": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "advmix_oks_matrix": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # csrc/timing.cu: launched by ops/cuda/timing.py only
+    "advmix_empty_launch": [_P],
+    "advmix_expf_probe": [_P, _I, _I, _I, _P],
+    "advmix_oks_matrix_baseline": [_P, _P, InvVar, _P, _I, _I, _I, _F, _P],
+}
 
 
 def _sources():
@@ -98,11 +111,10 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if missing or stale."""
     build()
     lib = ctypes.CDLL(LIB)
-    lib.advmix_decode_heatmaps.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
-    lib.advmix_decode_heatmaps.restype = _I
-    lib.advmix_oks_matrix.argtypes = [_P, _P, InvVar, _P, _I, _I, _I,
-                                      ctypes.c_float, _P]
-    lib.advmix_oks_matrix.restype = _I
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
     return lib
 
 

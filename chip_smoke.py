@@ -8,13 +8,20 @@ Phases, each fatal on failure:
    off for the f32 comparisons;
 2. build: compile the port's CUDA kernels (advmix_tpu_torch/csrc) with
    nvcc for sm_90a and print the build time;
-3. kernels: hold each kernel against its plain PyTorch version on the card
-   (decode bit-equal; OKS within rtol 1e-5, atol 1e-6; NMS keep lists equal
-   to the numpy oracle) and time both with CUDA events;
+3. kernels: time an empty kernel (the launch floor) and the card's expf
+   rate; hold each kernel against its plain PyTorch version on the card
+   (decode bit-equal on both routes; OKS within rtol 1e-5, atol 1e-6 and
+   symmetric to the bit; NMS keep lists equal to the numpy oracle); time
+   kernel, plain version and the first designs kept for comparison in
+   turns with CUDA events, decode at the eval batch and OKS at this run's
+   shapes and at those of a COCO val2017 pass (M=1600 P=32 on ground-truth
+   boxes, M=4096 P=128 on the detector's); time the whole batched OKS
+   route of COCO eval once;
 4. full path: experiments/coco/hrnet/w32_256x192_advmix.yaml at full
    width (seeded random weights, bf16, flip test, batch 128) through the
    port's validate() on a synthetic COCO val set, counting the kernels'
-   launches on that run;
+   launches on that run, and read the decode kernel's time inside the
+   eval step from the profiler;
 5. print a `kernels` JSON line and, last, the device JSON line.
 
 It imports nothing of JAX or of the JAX package.
@@ -28,6 +35,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from statistics import fmean as mean
 
 import numpy as np
 import torch
@@ -45,12 +53,32 @@ def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, iters: int = 20, flush: torch.Tensor | None = None) -> float:
+class Flush:
+    """Empties the 50 MB L2 cache between timed calls. "read" streams the
+    128 MB buffer through it, which leaves clean lines, as a caller finds
+    the cache when its input was written long ago. "write" overwrites 64 MB
+    of it, which leaves the cache full of dirty lines: the next kernel's
+    loads then wait on their write-back, so it reads slower than the bytes
+    it moves itself would make it."""
+
+    def __init__(self, buf: torch.Tensor, by: str = "read"):
+        self.buf, self.by = buf, by
+
+    def __call__(self) -> None:
+        if self.by == "read":
+            self.buf.view(torch.int32).max()
+        else:
+            self.buf[:64 << 20].zero_()
+
+
+def time_ms(fn, iters: int = 20, flush: Flush | None = None) -> float:
     """Mean device ms of one fn() call, by CUDA events around `iters` calls
     after 3 warm-ups. A sleep kernel holds the stream while the host
     enqueues the calls, so Python's launch overhead is not timed. With
-    `flush`, the 50 MB L2 cache is overwritten before each call and the
-    flushes' own time, measured alone, is subtracted."""
+    `flush`, the L2 cache is emptied before each call and the flushes' own
+    time, measured alone, is subtracted."""
+    if flush is not None:
+        flush()  # its first call loads its kernel
     t0 = time.perf_counter()
     for _ in range(3):
         fn()
@@ -66,7 +94,7 @@ def time_ms(fn, iters: int = 20, flush: torch.Tensor | None = None) -> float:
         start.record()
         for _ in range(iters):
             if flush is not None:
-                flush.zero_()
+                flush()
             if call:
                 fn()
         end.record()
@@ -94,9 +122,9 @@ def wall_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_step(fn, steps: int = 3) -> None:
-    """Device time of `steps` calls by kernel family (torch.profiler),
-    and the device's busy share of the window's wall time."""
+def profiled(fn, steps: int = 3):
+    """Run fn() `steps` times under torch.profiler after one warm-up.
+    Returns (wall us of the window, {kernel name: (device us, launches)})."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -108,19 +136,60 @@ def profile_step(fn, steps: int = 3) -> None:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    return wall_us, by_name
+
+
+def profile_step(fn, steps: int = 3) -> float:
+    """Device time of `steps` calls by kernel family (torch.profiler),
+    and the device's busy share of the window's wall time. Returns the mean
+    ms per launch of the decode kernel where the step runs it (after the
+    loss and the PCK sums have read the heatmaps)."""
+    wall_us, by_name = profiled(fn, steps)
+    busy_us = sum(t for t, _ in by_name.values())
+    n_kernels = sum(n for _, n in by_name.values())
     log(f"[profile] {steps} eval steps: wall {wall_us / 1e3:.3f} ms, device "
         f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), "
-        f"{len(kernels) // steps} kernels per step")
-    by_name: dict = {}
-    for e in kernels:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        f"{n_kernels // steps} kernels per step")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"[profile]   {t / steps / 1e3:8.3f} ms/step  {n // steps:5d} "
             f"launches/step  {name[:90]}")
+    seen = [tn for name, tn in by_name.items() if "decode_warp_kernel" in name]
+    if len(seen) != 1 or seen[0][1] != steps:
+        raise AssertionError("the decode kernel did not run once per step")
+    in_step = seen[0][0] / steps / 1e3
+    log(f"[profile] decode kernel in its place in the step: {in_step:.5f} ms "
+        "per launch (the profiler's kernel time)")
+    return in_step
+
+
+def decode_after_forward(forward, image) -> dict:
+    """Both routes of csrc/decode.cu in the cache state the step leaves:
+    each is forced in turn (a, b, b, a) on the step's own heatmaps right
+    after the two forwards and the flip average that wrote them, and the
+    profiler's time of its kernel is read. Returns route -> mean ms per
+    launch."""
+    from advmix_tpu_torch.ops.cuda.timing import decode_by
+
+    kernel_of = {"scalar": "decode_block_kernel",
+                 "vector": "decode_warp_kernel"}
+    reads: dict = {r: [] for r in kernel_of}
+    for route in ("scalar", "vector", "vector", "scalar"):
+        _, by_name = profiled(lambda: decode_by(route, forward(image)))
+        seen = [tn for name, tn in by_name.items() if kernel_of[route] in name]
+        if len(seen) != 1:
+            raise AssertionError(f"{kernel_of[route]} did not run in the step")
+        reads[route].append(seen[0][0] / seen[0][1] / 1e3)
+    for route, pair in reads.items():
+        log(f"[profile] decode right after the step's forward, {route} route: "
+            f"{pair[0]:.5f} / {pair[1]:.5f} ms in turns, mean "
+            f"{mean(pair):.5f} ms per launch (the profiler's kernel time, "
+            "3 steps each)")
+    return {r: mean(pair) for r, pair in reads.items()}
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -174,6 +243,273 @@ def flat_kpts(kpts: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version, and the timings
+# ---------------------------------------------------------------------------
+
+def in_turns(fns: dict, flush=None, iters: int = 20) -> dict:
+    """Time every fn of `fns` in order and then in reverse order (a, b, c,
+    c, b, a), so that a drift of the card's clocks falls on all alike.
+    Returns name -> (first reading, second reading) in ms."""
+    first = {k: time_ms(f, iters, flush) for k, f in fns.items()}
+    second = {k: time_ms(fns[k], iters, flush) for k in reversed(fns)}
+    return {k: (first[k], second[k]) for k in fns}
+
+
+def yardsticks(dev, flush) -> None:
+    """The launch floor (an empty kernel timed as the kernels are) and the
+    card's expf rate, printed for PERF.md; neither enters a bound."""
+    from advmix_tpu_torch.ops.cuda.timing import empty_launch, expf_probe
+
+    warm = time_ms(lambda: empty_launch(dev))
+    cold = time_ms(lambda: empty_launch(dev), flush=flush)
+    log(f"[kernels] launch floor: {warm:.5f} ms (an empty kernel under "
+        f"time_ms; {cold:.5f} ms with the L2 flush subtracted)")
+    blocks, threads, iters = 132 * 8, 256, 1024
+    out = torch.empty(blocks * threads, device=dev)
+    n = expf_probe(out, blocks, threads, iters)
+    ms = time_ms(lambda: expf_probe(out, blocks, threads, iters))
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError("expf probe wrote a value that is not finite")
+    log(f"[kernels] expf rate: {n / ms / 1e6:.1f} G expf/s ({n} expf and "
+        f"as many adds in {ms:.4f} ms)")
+
+
+def decode_phase(dev, rng, flush) -> dict:
+    from advmix_tpu_torch.ops.cuda.decode_kernel import (
+        decode_heatmaps, decode_heatmaps_plain, decode_route)
+    from advmix_tpu_torch.ops.cuda.timing import decode_by
+
+    designs = ("scalar", "vector")  # the first design; the redesign
+    hm = torch.from_numpy(decode_inputs(rng)).to(dev)
+    b, j, h, w = hm.shape
+    # the same maps as a contiguous view that is only 4-byte aligned
+    shifted = torch.empty(hm.numel() + 1, device=dev)[1:].view_as(hm)
+    shifted.copy_(hm)
+    if decode_route(h, w, hm.data_ptr()) != "vector" or decode_route(
+            h, w, shifted.data_ptr()) != "scalar":
+        raise AssertionError("decode_route: aligned maps must take the "
+                             "vector route, the shifted view the scalar one")
+    err = 0.0
+    for post in (True, False):
+        cp, mp = decode_heatmaps_plain(hm, post_process=post)
+        fin = torch.isfinite(mp)  # -inf maps: inf - inf is NaN
+        few = hm[:3, :5].contiguous()  # 15 maps: not whole blocks of 4
+        runs = {"wrapper": (decode_heatmaps(hm, post), (cp, mp)),
+                "wrapper, shifted view": (decode_heatmaps(shifted, post),
+                                          (cp, mp)),
+                "wrapper, 15 maps": (decode_heatmaps(few, post),
+                                     (cp[:3, :5], mp[:3, :5]))}
+        runs.update({d: (decode_by(d, hm, post), (cp, mp)) for d in designs})
+        torch.cuda.synchronize()
+        for name, (got, want) in runs.items():
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                bad = (got[0] != want[0]).any(-1).nonzero()[:5].tolist()
+                raise AssertionError(f"decode {name} (post={post}) differs "
+                                     f"from the plain version at maps {bad}")
+        ck, mk = runs["wrapper"][0]
+        err = max(err, float((ck - cp).abs().max()),
+                  float((mk - mp)[fin].abs().max()))
+    log(f"[kernels] decode {tuple(hm.shape)}: the wrapper (vector route; "
+        "scalar route on a 4-byte aligned view) and the routes "
+        f"{', '.join(designs)} forced are bit-equal to the plain version "
+        "(random, ties, bf16, zero, negative, -inf, border peaks)")
+
+    hm_main = torch.randn(b, j, h, w, device=dev)
+    nb, by = bound(b * j * h * w * 4 + b * j * 3 * 4, b * j * h * w)
+    fns = {d: (lambda d=d: decode_by(d, hm_main)) for d in designs}
+    fns["wrapper"] = lambda: decode_heatmaps(hm_main)
+    fns["plain"] = lambda: decode_heatmaps_plain(hm_main)
+    times = {}
+    # three cache states: the L2 emptied by reads (clean lines: the bound's
+    # own premise, and the reading that goes into the report), emptied by
+    # writes (dirty lines: what a write flush costs the kernel after it),
+    # and left warm (the 26.7 MB batch fits in the 50 MB cache)
+    states = {"cold L2": flush,
+              "cold L2 left dirty": Flush(flush.buf, "write"),
+              "warm L2": None}
+    for state, fl in states.items():
+        for name, pair in in_turns(fns, fl).items():
+            log(f"[kernels] decode {tuple(hm.shape)} {state}, {name}: "
+                f"{pair[0]:.5f} / {pair[1]:.5f} ms in turns, mean "
+                f"{mean(pair):.5f} ms = {100 * nb / mean(pair):.1f}% of the "
+                f"bound {nb:.5f} ms ({by})")
+            times[state, name] = mean(pair)
+    return dict(
+        name="decode_heatmaps", route="cuda",
+        source="advmix_tpu_torch/csrc/decode.cu",
+        replaces="advmix_tpu/ops/pallas/decode_kernel.py:73",
+        shape=f"{tuple(hm.shape)} f32, the eval batch, cold L2",
+        max_abs_err=err, ms=times["cold L2", "wrapper"],
+        plain_ms=times["cold L2", "plain"], bound_ms=nb, bound_by=by,
+        library_ms=None,
+        # the same kernel in the other two cache states, and the first
+        # design (block per map) in the reported one
+        ms_dirty_l2=times["cold L2 left dirty", "wrapper"],
+        ms_warm_l2=times["warm L2", "wrapper"],
+        first_design_ms=times["cold L2", "scalar"])
+
+
+def oks_bounds(m: int, p: int, j: int = 17):
+    """(bound for all P x P entries, bound for the P(P+1)/2 entries the
+    symmetric matrix needs), each (ms, "bytes" or "operations"). Every
+    output byte is written either way."""
+    nbytes = m * p * j * 2 * 4 + m * p * 4 + j * 4 + m * p * p * 4
+    per_entry = 9 * j + 4
+    return (bound(nbytes, m * p * p * per_entry),
+            bound(nbytes, m * p * (p + 1) // 2 * per_entry))
+
+
+def oks_phase(dev, rng, flush, m_main: int, p_main: int, n_big: int) -> dict:
+    from advmix_tpu_torch.native import greedy_from_matrix
+    from advmix_tpu_torch.ops.cuda.oks_kernel import (
+        oks_matrix, oks_matrix_batched, oks_matrix_batched_plain)
+    from advmix_tpu_torch.ops.cuda.timing import oks_baseline, oks_by_micro
+    from advmix_tpu_torch.ops.nms import oks_nms_np
+
+    def check(kind, m, p):
+        kpts, scores, areas = oks_inputs(rng, m, p)
+        kt = torch.from_numpy(kpts).to(dev)
+        at = torch.from_numpy(areas.astype(np.float32)).to(dev)
+        if kind == "batched":
+            got = oks_matrix_batched(kt, at)
+        else:
+            got = oks_matrix(kt[0], at[0])[None]
+        want = oks_matrix_batched_plain(kt, at)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        if not torch.equal(got, got.transpose(1, 2)):
+            raise AssertionError(f"oks {kind} M={m} P={p}: the matrix is not "
+                                 "symmetric to the bit")
+        for micro in (1, 2, 4):
+            if not torch.equal(oks_by_micro(kt, at, micro), got):
+                raise AssertionError(f"oks M={m} P={p}: micro-tile {micro} "
+                                     "differs from the wrapper's result")
+        torch.testing.assert_close(oks_baseline(kt, at), want, rtol=1e-5,
+                                   atol=1e-6)
+        e = float((got - want).abs().max())
+        sims = got[:4].cpu().numpy()
+        for i in range(min(m, 4)):
+            keep = greedy_from_matrix(sims[i], scores[i].astype(np.float32),
+                                      0.9)
+            ref = oks_nms_np(flat_kpts(kpts[i].astype(np.float64)),
+                             scores[i], areas[i], 0.9)
+            if keep != ref:
+                raise AssertionError(f"oks {kind} M={m} P={p} image {i}: "
+                                     f"keep {keep} != oks_nms_np {ref}")
+        log(f"[kernels] oks {kind} M={m} P={p}: max |err| {e:.3g}, symmetric "
+            "to the bit, micro-tiles 1/2/4 identical, keep lists equal "
+            "oks_nms_np")
+        return e, kt, at
+
+    def timed(label, kt, at, wrapper_fn, cold):
+        m, p = kt.shape[:2]
+        (full, full_by), (need, need_by) = oks_bounds(m, p)
+        fns = {"baseline": lambda: oks_baseline(kt, at)}
+        fns.update({f"micro {k}": (lambda k=k: oks_by_micro(kt, at, k))
+                    for k in (1, 2, 4)})
+        fns["wrapper"] = wrapper_fn
+        fns["plain"] = lambda: oks_matrix_batched_plain(kt, at)
+        times = in_turns(fns, flush if cold else None)
+        for name, pair in times.items():
+            log(f"[kernels] oks {label}{' cold L2' if cold else ''}, {name}: "
+                f"{pair[0]:.5f} / {pair[1]:.5f} ms in turns, mean "
+                f"{mean(pair):.5f} ms = {100 * full / mean(pair):.2f}% of "
+                f"the bound for P x P entries {full:.6f} ms ({full_by}), "
+                f"{100 * need / mean(pair):.2f}% of the bound for "
+                f"P(P+1)/2 entries {need:.6f} ms ({need_by})")
+        # the report takes the bound of the entries the function needs
+        return times, need, need_by
+
+    errs = {"batched": 0.0, "single": 0.0}
+    for p in (2, 15, 16, 17, 33, 128):
+        errs["batched"] = max(errs["batched"], check("batched", 64, p)[0])
+    e, kb, ab = check("batched", m_main, p_main)
+    errs["batched"] = max(errs["batched"], e)
+    for n in (300, n_big):
+        e, ks, as_ = check("single", 1, n)
+        errs["single"] = max(errs["single"], e)
+
+    report = {}
+    times, nb, by = timed(f"M={m_main} P={p_main}", kb, ab,
+                          lambda: oks_matrix_batched(kb, ab), cold=False)
+    report["oks_matrix_batched"] = dict(
+        name="oks_matrix_batched", route="cuda",
+        source="advmix_tpu_torch/csrc/oks.cu",
+        replaces="advmix_tpu/ops/pallas/oks_kernel.py:68",
+        shape=f"M={m_main} P={p_main} J=17, this run's validate() pass",
+        max_abs_err=errs["batched"], ms=mean(times["wrapper"]),
+        plain_ms=mean(times["plain"]), bound_ms=nb, bound_by=by,
+        library_ms=None)
+    times, nb, by = timed(f"N={n_big}", ks, as_,
+                          lambda: oks_matrix(ks[0], as_[0]), cold=False)
+    report["oks_matrix"] = dict(
+        name="oks_matrix", route="cuda",
+        source="advmix_tpu_torch/csrc/oks.cu",
+        replaces="advmix_tpu/ops/pallas/oks_kernel.py:115",
+        shape=f"N={n_big} J=17, this run's validate() pass",
+        max_abs_err=errs["single"], ms=mean(times["wrapper"]),
+        plain_ms=mean(times["plain"]), bound_ms=nb, bound_by=by,
+        library_ms=None)
+
+    # the shapes of one COCO val2017 pass: ground-truth boxes (6,352
+    # people; this YAML) and the detector's boxes (104,125; USE_GT_BBOX
+    # false), both checked and timed with a cold L2
+    for m, p in ((1600, 32), (4096, 64), (4096, 128)):
+        e, kt, at = check("batched", m, p)
+        report["oks_matrix_batched"]["max_abs_err"] = max(
+            report["oks_matrix_batched"]["max_abs_err"], e)
+        timed(f"M={m} P={p}", kt, at, lambda: oks_matrix_batched(kt, at),
+              cold=True)
+        del kt, at
+    return report
+
+
+def oks_route_timing(dev, rng, m: int = 4096, big: int = 100) -> None:
+    """The whole batched OKS route of COCO eval on detected boxes, as
+    coco_eval runs it: the padding loop on the host, the copy to the
+    device, the kernel, the copy of the (M, 128, 128) matrices back."""
+    from advmix_tpu_torch.evaluation.coco_eval import _oks_matrices_batched
+
+    # 2..40 candidates per image (mean 21, as 104,125 boxes over COCO
+    # val2017's ~5,000 images), one image of `big` so that P = 128
+    counts = rng.randint(2, 41, m)
+    counts[0] = big
+    cand = []
+    for i, n in enumerate(counts):
+        kpts, _, areas = oks_inputs(rng, 1, int(n))
+        vis = np.ones((n, 17, 1), np.float32)
+        cand.append((i, [dict(keypoints=np.concatenate([kpts[0, k], vis[k]],
+                                                       1),
+                              area=float(areas[0, k])) for k in range(n)]))
+    _oks_matrices_batched(cand[:64], 17, dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sims = _oks_matrices_batched(cand, 17, dev)
+    total = time.perf_counter() - t0
+    p = 128
+    host = torch.empty(m, p, 17, 2)
+    t0 = time.perf_counter()
+    on_dev = host.to(dev)
+    torch.cuda.synchronize()
+    h2d = time.perf_counter() - t0
+    out = torch.empty(m, p, p, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out.cpu()
+    d2h = time.perf_counter() - t0
+    del on_dev, out
+    if len(sims) != m or sims[0].shape != (big, big):
+        raise AssertionError("batched OKS route returned the wrong matrices")
+    log(f"[path] _oks_matrices_batched M={m} P={p} ({int(counts.sum())} "
+        f"candidates): {total * 1e3:.1f} ms in all; alone, the copy of the "
+        f"keypoints to the device {h2d * 1e3:.1f} ms and of the "
+        f"{m * p * p * 4 / 1e6:.0f} MB of matrices back {d2h * 1e3:.1f} ms; "
+        "the kernel's own time is on the [kernels] line of this shape, the "
+        "rest is the host's padding loop and slicing")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: synthetic COCO val set
 # ---------------------------------------------------------------------------
 
@@ -218,13 +554,12 @@ def main() -> None:
                                                  to_device, validate)
     from advmix_tpu_torch.models import get_pose_net, he_reinit_convs
     from advmix_tpu_torch.models.layers import set_compute_dtype
-    from advmix_tpu_torch.native import get_lib, greedy_from_matrix
+    from advmix_tpu_torch.native import get_lib
     from advmix_tpu_torch.ops.cuda import build as kbuild
     from advmix_tpu_torch.ops.cuda.decode_kernel import (
         decode_heatmaps, decode_heatmaps_plain)
-    from advmix_tpu_torch.ops.cuda.oks_kernel import (
-        oks_matrix, oks_matrix_batched, oks_matrix_batched_plain)
-    from advmix_tpu_torch.ops.nms import oks_nms_np
+    from advmix_tpu_torch.ops.cuda.oks_kernel import (oks_matrix,
+                                                      oks_matrix_batched)
     from advmix_tpu_torch.ops.transforms import affine_transform, \
         get_affine_transform, transform_preds_batch
 
@@ -253,108 +588,19 @@ def main() -> None:
     kbuild.library()
 
     rng = np.random.RandomState(SEED)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    report = {}
+    flush = Flush(torch.zeros(128 << 20, dtype=torch.uint8, device=dev))
 
     # ---- 3. kernels vs plain versions ------------------------------------
-    hm = torch.from_numpy(decode_inputs(rng)).to(dev)
-    err = 0.0
-    for post in (True, False):
-        ck, mk = decode_heatmaps(hm, post_process=post)
-        cp, mp = decode_heatmaps_plain(hm, post_process=post)
-        torch.cuda.synchronize()
-        if not (torch.equal(ck, cp) and torch.equal(mk, mp)):
-            bad = (ck != cp).any(-1).nonzero()[:5].tolist()
-            raise AssertionError(f"decode(post={post}) differs from the "
-                                 f"plain version at maps {bad}")
-        fin = torch.isfinite(mp)  # -inf maps: inf - inf is NaN
-        err = max(err, float((ck - cp).abs().max()),
-                  float((mk - mp)[fin].abs().max()))
-    log(f"[kernels] decode {tuple(hm.shape)}: bit-equal to the plain version "
-        "(random, ties, bf16, zero, negative, -inf, border peaks)")
-    b, j, h, w = hm.shape
-    hm_main = torch.randn(b, j, h, w, device=dev)
-    nb, fl = bound(b * j * h * w * 4 + b * j * 3 * 4, b * j * h * w)
-    report["decode_heatmaps"] = dict(
-        name="decode_heatmaps", route="cuda",
-        source="advmix_tpu_torch/csrc/decode.cu",
-        replaces="advmix_tpu/ops/pallas/decode_kernel.py:73",
-        max_abs_err=err,
-        ms=time_ms(lambda: decode_heatmaps(hm_main), flush=flush),
-        plain_ms=time_ms(lambda: decode_heatmaps_plain(hm_main),
-                         flush=flush),
-        bound_ms=nb, bound_by=fl, library_ms=None)
-    log(f"[kernels] decode {tuple(hm.shape)}: "
-        f"{report['decode_heatmaps']['ms']:.4f} ms, plain "
-        f"{report['decode_heatmaps']['plain_ms']:.4f} ms, bound "
-        f"{nb * 1e3:.2f} us ({fl})")
-
+    yardsticks(dev, flush)
+    report = {"decode_heatmaps": decode_phase(dev, rng, flush)}
     # the full path's shapes (phase 4's data): 47 images of 2..20 people
     # -> M=47 images padded to P=32, and one image of N=130 people
     n_img, n_big = 47, 130
-    data_rng = np.random.RandomState(SEED + 1)
-    counts = [int(c) for c in data_rng.randint(2, 21, n_img)]
-    m_main, p_main = n_img, 1 << (max(counts) - 1).bit_length()
-
-    def check_oks(kind, m, p):
-        kpts, scores, areas = oks_inputs(rng, m, p)
-        kt = torch.from_numpy(kpts).to(dev)
-        at = torch.from_numpy(areas.astype(np.float32)).to(dev)
-        if kind == "batched":
-            got = oks_matrix_batched(kt, at)
-        else:
-            got = oks_matrix(kt[0], at[0])[None]
-        want = oks_matrix_batched_plain(kt, at)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-        e = float((got - want).abs().max())
-        sims = got.cpu().numpy()
-        for i in range(min(m, 4)):
-            keep = greedy_from_matrix(sims[i], scores[i].astype(np.float32),
-                                      0.9)
-            ref = oks_nms_np(flat_kpts(kpts[i].astype(np.float64)),
-                             scores[i], areas[i], 0.9)
-            if keep != ref:
-                raise AssertionError(f"oks {kind} M={m} P={p} image {i}: "
-                                     f"keep {keep} != oks_nms_np {ref}")
-        log(f"[kernels] oks {kind} M={m} P={p}: max |err| {e:.3g}, keep "
-            "lists equal oks_nms_np")
-        return e, kt, at
-
-    errs = {"batched": 0.0, "single": 0.0}
-    for p in (2, 16, 128):
-        errs["batched"] = max(errs["batched"], check_oks("batched", 64, p)[0])
-    e, kb, ab = check_oks("batched", m_main, p_main)
-    errs["batched"] = max(errs["batched"], e)
-    for n in (300, n_big):
-        e, ks, as_ = check_oks("single", 1, n)
-        errs["single"] = max(errs["single"], e)
-
-    def oks_bound(m, p):
-        return bound(m * p * j * 2 * 4 + m * p * 4 + j * 4 + m * p * p * 4,
-                     m * p * p * (9 * j + 4))
-
-    nb, fl = oks_bound(m_main, p_main)
-    report["oks_matrix_batched"] = dict(
-        name="oks_matrix_batched", route="cuda",
-        source="advmix_tpu_torch/csrc/oks.cu",
-        replaces="advmix_tpu/ops/pallas/oks_kernel.py:68",
-        max_abs_err=errs["batched"],
-        ms=time_ms(lambda: oks_matrix_batched(kb, ab)),
-        plain_ms=time_ms(lambda: oks_matrix_batched_plain(kb, ab)),
-        bound_ms=nb, bound_by=fl, library_ms=None)
-    nb, fl = oks_bound(1, n_big)
-    report["oks_matrix"] = dict(
-        name="oks_matrix", route="cuda",
-        source="advmix_tpu_torch/csrc/oks.cu",
-        replaces="advmix_tpu/ops/pallas/oks_kernel.py:115",
-        max_abs_err=errs["single"],
-        ms=time_ms(lambda: oks_matrix(ks[0], as_[0])),
-        plain_ms=time_ms(lambda: oks_matrix_batched_plain(ks, as_)),
-        bound_ms=nb, bound_by=fl, library_ms=None)
-    for k in ("oks_matrix_batched", "oks_matrix"):
-        r = report[k]
-        log(f"[kernels] {k}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
-            f" bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+    counts = [int(c) for c in np.random.RandomState(SEED + 1).randint(
+        2, 21, n_img)]
+    report.update(oks_phase(dev, rng, flush, n_img,
+                            1 << (max(counts) - 1).bit_length(), n_big))
+    oks_route_timing(dev, np.random.RandomState(SEED + 3))
 
     # ---- 4. the full path at full width ----------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -501,16 +747,17 @@ def main() -> None:
         f"{dataset.eval_seconds:.3f} s; AP {ap:.4f} (random weights)")
     log(f"[path] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_step(lambda: eval_step(batch))
+    in_step = profile_step(lambda: eval_step(batch))
+    after = decode_after_forward(eval_step.forward, batch["image"])
+    report["decode_heatmaps"].update(
+        ms_in_step=in_step, ms_after_forward=after["vector"],
+        first_design_ms_after_forward=after["scalar"])
 
     kernels = []
     for k in ("decode_heatmaps", "oks_matrix_batched", "oks_matrix"):
         r = dict(report[k])
         r["launches"] = launches[k]
-        kernels.append({key: r[key] for key in (
-            "name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")})
+        kernels.append(r)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
