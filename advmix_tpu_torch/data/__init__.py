@@ -1,4 +1,5 @@
 from .datasets import COCODataset, SyntheticPoseDataset, build_dataset
-from .loader import Loader
+from .loader import CachedLoader, Loader
 
-__all__ = ["COCODataset", "SyntheticPoseDataset", "build_dataset", "Loader"]
+__all__ = ["COCODataset", "SyntheticPoseDataset", "build_dataset",
+           "CachedLoader", "Loader"]

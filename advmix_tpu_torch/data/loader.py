@@ -1,12 +1,15 @@
 """Batching loader with a thread pool and background prefetch.
 
-Port of `advmix_tpu/data/loader.py:Loader` for one process, eval side (no
-shuffling; training's options join with the training slice). Samples come
-from a thread pool sized to the host's cores (cv2 and numpy release the
-GIL during decode and warp), `PREFETCH + 1` batches are in flight, and
-batches are yielded strictly in order as dicts of stacked numpy arrays.
-The last partial batch is padded by repeating its last sample, with `_n`
-holding the real count and `_indices` the dataset indices.
+Port of `advmix_tpu/data/loader.py` for one process. Samples come from a
+thread pool sized to the host's cores (cv2 and numpy release the GIL during
+decode and warp), `prefetch + 1` batches are in flight, and batches are
+yielded strictly in order as dicts of stacked numpy arrays. Sample i of
+epoch e is drawn from `RandomState((seed * 100003 + e + i) % 2**31)`, the
+JAX Loader's per-sample stream, and a shuffled epoch's order from
+`RandomState(seed + e)`, so both packages yield the same batches for a
+seed. The last partial batch is padded by repeating its last sample (or
+dropped with `drop_last`), with `_n` holding the real count and `_indices`
+the dataset indices.
 """
 
 from __future__ import annotations
@@ -19,20 +22,89 @@ from typing import Iterator
 import numpy as np
 
 
-# batches in flight beyond the one being consumed
-PREFETCH = 2
+class CachedLoader:
+    """Replays a deterministic eval loader's batches from host memory.
+
+    Every epoch's validation prepares the same batches, so all the host's
+    work on them (decode, warp, collate) is the same on every pass; after
+    the first pass they are served from memory. Only for an unshuffled
+    loader whose `set_epoch` is never used. If the batches outgrow
+    `max_bytes` the cache is given up mid-build and every pass reads the
+    live loader."""
+
+    def __init__(self, loader: "Loader", max_bytes: int = 8 << 30):
+        if loader.shuffle:
+            raise ValueError("CachedLoader requires a shuffle=False loader")
+        self.loader = loader
+        self.max_bytes = int(max_bytes)
+        self._cache = None
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __getattr__(self, name):
+        # dataset, batch_size, ... of the wrapped loader
+        return getattr(self.loader, name)
+
+    def __iter__(self) -> Iterator[dict]:
+        if self._cache is not None:
+            # a shallow copy each, so a consumer that adds or overwrites
+            # keys cannot spoil later passes
+            for b in self._cache:
+                yield dict(b)
+            return
+        acc: list = []
+        nbytes = 0
+        fits = True
+        for b in self.loader:
+            if fits:
+                nbytes += sum(v.nbytes for v in b.values()
+                              if isinstance(v, np.ndarray))
+                if nbytes <= self.max_bytes:
+                    acc.append(b)
+                else:
+                    fits, acc = False, []
+            yield dict(b)
+        if fits:
+            self._cache = acc
 
 
 class Loader:
-    """Eval batches of `dataset` in dataset order."""
+    """Batches of `dataset`. `raw_mode` yields `get_raw_sample` batches
+    (source images padded into `bucket_hw` plus crop matrices) for the
+    on-device warp instead of crops warped on the host."""
 
-    def __init__(self, dataset, batch_size: int):
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0,
+                 num_threads: int | None = None, prefetch: int = 2,
+                 raw_mode: bool = False, bucket_hw=(640, 640)):
+        if num_threads is None:
+            num_threads = max(2, min(64, os.cpu_count() or 2))
         self.dataset = dataset
         self.batch_size = batch_size
-        self.num_threads = max(2, min(64, os.cpu_count() or 2))
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.num_threads = max(1, num_threads)
+        self.prefetch = prefetch
+        self.raw_mode = raw_mode
+        self.bucket_hw = tuple(bucket_hw)
+        self.epoch = 0
 
     def __len__(self):
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def _indices(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(idx)
+        return idx
 
     def _assemble(self, samples, bidx) -> dict:
         real = len(samples)
@@ -51,22 +123,32 @@ class Loader:
         return batch
 
     def __iter__(self) -> Iterator[dict]:
-        indices = np.arange(len(self.dataset))
+        indices = self._indices()
         batches = [indices[s: s + self.batch_size]
                    for s in range(0, len(indices), self.batch_size)]
+        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            batches.pop()
+        base = self.seed * 100003 + self.epoch
 
         def one(i: int):
-            # the JAX Loader's per-sample stream at seed 0, epoch 0; the
-            # eval branch of get_sample draws nothing from it
-            return self.dataset.get_sample(int(i), np.random.RandomState(
-                int(i)))
+            rng = np.random.RandomState((base + int(i)) % (2 ** 31))
+            if self.raw_mode:
+                return self.dataset.get_raw_sample(int(i), rng,
+                                                   self.bucket_hw)
+            return self.dataset.get_sample(int(i), rng)
 
+        if self.num_threads <= 1:
+            for bidx in batches:
+                yield self._assemble([one(i) for i in bidx], bidx)
+            return
+
+        window = max(1, self.prefetch) + 1
         with ThreadPoolExecutor(max_workers=self.num_threads) as ex:
             inflight: deque = deque()
             todo = iter(batches)
             for bidx in todo:
                 inflight.append(([ex.submit(one, i) for i in bidx], bidx))
-                if len(inflight) > PREFETCH:
+                if len(inflight) >= window:
                     break
             while inflight:
                 futs, bidx = inflight.popleft()

@@ -171,3 +171,21 @@ def load_coco_det_records(
             )
         )
     return records
+
+
+def select_data(records: List[dict]) -> List[dict]:
+    """ks-metric record filtering (`lib/dataset/JointsDataset.py:366-399`)."""
+    selected = []
+    for rec in records:
+        vis = rec["joints_3d_vis"][:, 0] > 0
+        num_vis = int(vis.sum())
+        if num_vis == 0:
+            continue
+        joints_center = rec["joints_3d"][vis, :2].mean(axis=0)
+        area = rec["scale"][0] * rec["scale"][1] * (PIXEL_STD**2)
+        diff = np.linalg.norm(joints_center - np.asarray(rec["center"]))
+        ks = np.exp(-1.0 * (diff**2) / ((0.2**2) * 2.0 * area))
+        metric = (0.2 / 16) * num_vis + 0.45 - 0.2 / 16
+        if ks > metric:
+            selected.append(rec)
+    return selected

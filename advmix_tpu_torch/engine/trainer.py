@@ -1,30 +1,29 @@
-"""Host-side validation driver.
+"""Host-side training and validation loops.
 
-Port of `advmix_tpu/engine/trainer.py:make_eval_preprocessor` and
-`validate` (reference `lib/core/function.py:200-360`), single process: the
-threaded Loader feeds uint8 crops, the device normalizes them and builds
-the Gaussian targets, the eval step decodes, and the host gathers the
-predictions in dataset order for `dataset.evaluate`.
+Port of `advmix_tpu/engine/trainer.py` (reference `tools/train.py:283-328`
+and `lib/core/function.py`), single process. Training: the threaded Loader
+feeds uint8 crops (or, with DATASET.DEVICE_WARP, padded source images and
+crop matrices), the device warps, normalizes, synthesizes the three AdvMix
+views and builds the Gaussian targets, and each iteration is one call of a
+step of `engine/steps.py`. Validation: the eval step decodes, and the host
+gathers the predictions in dataset order for `dataset.evaluate`.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import numpy as np
 import torch
 
+from ..ops.augment import IMAGENET_MEAN, IMAGENET_STD, make_advmix_views
 from ..ops.heatmap import generate_target
+from ..ops.transforms import warp_affine
 from ..utils.logging import LOGGER_NAME, AverageMeter, print_name_value
 
 logger = logging.getLogger(LOGGER_NAME)
-
-# ImageNet mean / std; scaled to 0..255 in f32 as
-# advmix_tpu/ops/augment.py:28-31 does
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
-
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> device tensor; through pinned memory, asynchronously,
@@ -33,6 +32,49 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def make_preprocessor(cfg, advmix: bool, device: torch.device,
+                      sp_style: bool = False, device_warp: bool = False):
+    """Device-side batch preparation for training: uint8 crops (B, H, W, 3)
+    or, with `device_warp`, padded source images and crop matrices
+    (`ops/transforms.warp_affine`) -> normalized NCHW views or images, and
+    Gaussian targets. `prep(raw, generator)` takes the device tensors named
+    in `prep.required` and the generator of the augmentation's draws.
+
+    The views are synthesized at the training compute dtype: in bf16 the
+    augment moves half the bytes for at most one uint8 level of drift.
+    `sp_style`: the views take the per-sample `is_style` mask."""
+    image_size = tuple(cfg.MODEL.IMAGE_SIZE)
+    heatmap_size = tuple(cfg.MODEL.HEATMAP_SIZE)
+    sigma = float(cfg.MODEL.SIGMA)
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
+                        device=device).view(1, 3, 1, 1) * 255.0
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
+                       device=device).view(1, 3, 1, 1) * 255.0
+    view_dtype = (torch.bfloat16 if str(cfg.TRAIN.DTYPE) == "bfloat16"
+                  else None)
+
+    @torch.no_grad()
+    def prep(raw, generator):
+        img = raw["image"]
+        if device_warp:
+            img = warp_affine(img, raw["warp_matrix"], image_size)
+        img = img.to(torch.float32).permute(0, 3, 1, 2)  # NHWC -> NCHW
+        target, _, tw = generate_target(raw["joints"], raw["joints_vis"],
+                                        image_size, heatmap_size, sigma)
+        if advmix:
+            views = make_advmix_views(
+                img, generator, style_mask=raw.get("is_style"),
+                out_dtype=view_dtype, compute_dtype=view_dtype)
+            return {"views": views, "target": target, "target_weight": tw}
+        return {"image": ((img - mean) / std).contiguous(), "target": target,
+                "target_weight": tw}
+
+    prep.required = tuple(["image", "joints", "joints_vis"]
+                          + (["warp_matrix"] if device_warp else [])
+                          + (["is_style"] if sp_style else []))
+    return prep
 
 
 def make_eval_preprocessor(cfg, device: torch.device):
@@ -54,6 +96,52 @@ def make_eval_preprocessor(cfg, device: torch.device):
                 "target_weight": tw}
 
     return prep
+
+
+def train_epoch(cfg, step_fn, prep_fn, loader, device: torch.device,
+                epoch: int, generator: torch.Generator,
+                advmix: bool = False):
+    """One epoch of steps (reference `train` / `train_advmix`). Returns the
+    per-iteration metrics as floats."""
+    batch_time = AverageMeter()
+    data_time = AverageMeter()
+    losses = AverageMeter()
+    accs = AverageMeter()
+    history = []
+    end = time.time()
+    for i, host_batch in enumerate(loader):
+        data_time.update(time.time() - end)
+        missing = [k for k in prep_fn.required if k not in host_batch]
+        if missing:
+            raise KeyError(
+                f"loader batch lacks {missing} required by the preprocessor "
+                "(device_warp needs Loader(raw_mode=True))")
+        raw = {k: to_device(host_batch[k], device) for k in prep_fn.required}
+        batch = prep_fn(raw, generator)
+        metrics = {k: float(v) for k, v in step_fn(batch).items()}
+        history.append(metrics)
+
+        n = host_batch["_n"]
+        losses.update(metrics["loss_d" if advmix else "loss"], n)
+        accs.update(metrics["acc"], int(metrics["acc_cnt"]))
+        batch_time.update(time.time() - end)
+        end = time.time()
+        if i % cfg.PRINT_FREQ == 0:
+            logger.info(
+                f"Epoch: [{epoch}][{i}/{len(loader)}]\t"
+                f"Time {batch_time.val:.3f}s ({batch_time.avg:.3f}s)\t"
+                f"Speed {n / max(batch_time.val, 1e-9):.1f} samples/s\t"
+                f"Data {data_time.val:.3f}s ({data_time.avg:.3f}s)\t"
+                f"Loss {losses.val:.5f} ({losses.avg:.5f})\t"
+                f"Accuracy {accs.val:.3f} ({accs.avg:.3f})")
+    return history
+
+
+def output_dir_of(cfg) -> str:
+    """The debug-dump directory, derived as `create_logger` derives its
+    own."""
+    return os.path.join(cfg.OUTPUT_DIR or "output", cfg.DATASET.DATASET,
+                        cfg.MODEL.NAME, "debug")
 
 
 def validate(cfg, eval_step, prep_fn, dataset, loader, output_dir: str,

@@ -14,7 +14,8 @@ import torch
 from torch import nn
 
 from . import pose_hrnet, pose_resnet
-from .convert import jax_to_torch_state_dict
+from .convert import jax_to_torch_state_dict, jax_unet_to_torch_state_dict
+from .unet import UnetGenerator, get_generator  # noqa: F401
 
 _REGISTRY = {
     "pose_resnet": pose_resnet.get_pose_net,
@@ -58,19 +59,53 @@ def strip_module_prefix(state_dict: dict) -> dict:
             for k, v in state_dict.items()}
 
 
+def _read_state_dict(path: str) -> dict:
+    state = torch.load(path, map_location="cpu")
+    for wrapper in ("state_dict", "best_state_dict"):
+        if isinstance(state, dict) and wrapper in state:
+            state = state[wrapper]
+    return strip_module_prefix(state)
+
+
+def load_pretrained(model: nn.Module, path: str, layers=("*",)) -> int:
+    """Selective, shape-filtered init from a backbone `.pth`
+    (`lib/models/pose_hrnet.py:462-492`): a key is taken when its first
+    component is in `layers` (or `layers` holds '*'), the model has it and
+    the shapes agree. Returns the number of keys taken; raises at 0."""
+    own = model.state_dict()
+    layers = tuple(layers or ("*",))
+    take = {k: v for k, v in _read_state_dict(path).items()
+            if (layers[0] == "*" or k.split(".")[0] in layers)
+            and k in own and tuple(v.shape) == tuple(own[k].shape)}
+    if not take:
+        raise KeyError(f"{path}: no key matches the model")
+    model.load_state_dict(take, strict=False)
+    return len(take)
+
+
+def load_generator_file(model: UnetGenerator, path: str) -> None:
+    """Load a reference `UnetGenerator` `.pth` or an `.npz` of the flax G's
+    params ('/'-joined paths) into the port's G, strictly."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            state = jax_unet_to_torch_state_dict(
+                {k: z[k] for k in z.files}, model)
+    else:
+        state = _read_state_dict(path)
+    model.load_state_dict(state, strict=True)
+
+
 def load_model_file(model: nn.Module, path: str) -> None:
     """Load a reference `.pth` (optionally wrapped in {'state_dict': ...},
-    with 'module.' prefixes) or an `.npz` of JAX variables flattened to
-    '/'-joined paths (`models/convert.py`) into `model`, strictly."""
+    with 'module.' prefixes), the port's own `final_state` or
+    `model_best.pth`, or an `.npz` of JAX variables flattened to '/'-joined
+    paths (`models/convert.py`) into `model`, strictly."""
     if path.endswith(".npz"):
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
         state = jax_to_torch_state_dict(flat, model)
     else:
-        state = torch.load(path, map_location="cpu")
-        if isinstance(state, dict) and "state_dict" in state:
-            state = state["state_dict"]
-        state = strip_module_prefix(state)
+        state = _read_state_dict(path)
         # checkpoints saved before torch tracked BN batch counts lack
         # these counters; they carry no weights, so keep the model's own
         for k, v in model.state_dict().items():

@@ -138,3 +138,77 @@ def jax_to_torch_state_dict(flat: dict, model: nn.Module) -> dict:
     if unused:
         raise KeyError(f"JAX variables with no torch key: {unused[:10]}")
     return state
+
+
+# ---------------------------------------------------------------------------
+# UNet generator, and the reverse direction
+# ---------------------------------------------------------------------------
+
+def unet_torch_key(depth: int, kind: str, num_downs: int = 6) -> str:
+    """Key prefix of the nested UnetGenerator's conv at `depth` (0 =
+    outermost), `kind` "down" or "up": the JAX package names the same conv
+    `down_<depth>_conv` / `up_<depth>_conv`
+    (`advmix_tpu/models/torch_convert.py:353-366`)."""
+    if depth == 0:
+        return "model.model.0" if kind == "down" else "model.model.3"
+    prefix = "model.model.1." + "model.3." * (depth - 1)
+    if kind == "down":
+        return prefix + "model.1"
+    return prefix + ("model.3" if depth == num_downs - 1 else "model.5")
+
+
+def jax_unet_to_torch_state_dict(flat: dict, model: nn.Module) -> dict:
+    """State dict of the port's `UnetGenerator` from the flax G's params as
+    '/'-joined paths (`params/down_0_conv/kernel`, with or without the
+    leading `params/`). Conv kernels (kh, kw, I, O) and transposed-conv
+    kernels (kh, kw, O, I; flax `transpose_kernel=True`) both become torch's
+    layout by the one permutation (3, 2, 0, 1), with no spatial flip."""
+    by_mod = {tuple(k.split("/")[-2:]): np.asarray(v) for k, v in flat.items()}
+    n = model.num_downs
+    state = {}
+    for d in range(n):
+        for kind in ("down", "up"):
+            base = unet_torch_key(d, kind, n)
+            mod = f"{kind}_{d}_conv"
+            state[base + ".weight"] = torch.from_numpy(np.ascontiguousarray(
+                np.transpose(by_mod[mod, "kernel"], (3, 2, 0, 1))))
+            state[base + ".bias"] = torch.from_numpy(
+                np.ascontiguousarray(by_mod[mod, "bias"]))
+    cur = model.state_dict()
+    if set(cur) != set(state) or len(by_mod) != len(state):
+        raise KeyError("flax UNet params do not cover the torch UNet's keys")
+    for k, v in state.items():
+        if tuple(v.shape) != tuple(cur[k].shape):
+            raise ValueError(f"{k}: JAX shape {tuple(v.shape)} != "
+                             f"{tuple(cur[k].shape)}")
+        state[k] = v.to(cur[k].dtype)
+    return state
+
+
+def torch_to_jax_leaves(model: nn.Module) -> dict:
+    """The reverse mapping, for comparing trained models leaf by leaf:
+    {"<collection>/<flax leaf module>/<leaf>": numpy array in the flax
+    layout} for a pose network or a `UnetGenerator`. The parents of a flax
+    leaf module are left out (their names repeat its prefix)."""
+    from .unet import UnetGenerator
+
+    back = {v: k for k, v in _LEAVES.items()}
+    unet = {}
+    if isinstance(model, UnetGenerator):
+        n = model.num_downs
+        unet = {unet_torch_key(d, kind, n): f"{kind}_{d}_conv"
+                for d in range(n) for kind in ("down", "up")}
+    kinds = {name: ("bn" if isinstance(m, nn.modules.batchnorm._BatchNorm)
+                    else "conv") for name, m in model.named_modules()}
+    out = {}
+    for tkey, val in model.state_dict().items():
+        if tkey.endswith("num_batches_tracked"):
+            continue
+        mod_path, _, leaf = tkey.rpartition(".")
+        coll, fleaf = _LEAVES[kinds[mod_path], leaf]
+        arr = val.detach().cpu().numpy()
+        if fleaf == "kernel":
+            arr = np.transpose(arr, (2, 3, 1, 0))
+        mod = unet.get(mod_path, mod_path.replace(".", "_"))
+        out[f"{coll}/{mod}/{fleaf}"] = arr
+    return out

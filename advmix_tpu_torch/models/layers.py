@@ -2,10 +2,17 @@
 
 Port of `advmix_tpu/models/layers.py`. Modules carry the reference's torch
 names, so a reference `.pth` loads with `load_state_dict(strict=True)`.
-Parameters stay f32; `set_compute_dtype` casts the convolutions to a
-compute dtype (bf16 per TRAIN.DTYPE), while BatchNorm keeps its statistics
-and arithmetic in at least f32, as the JAX `TorchBatchNorm` does
-(`layers.py:57-60`).
+
+Compute dtype (bf16 per TRAIN.DTYPE). A convolution computes in the dtype of
+its input and casts its weight to it on the way, so the dtype a model runs
+in is the dtype its `forward` casts the input to (`compute_dtype_of`).
+`set_compute_dtype` sets it in one of two ways: for a frozen model (eval,
+the KD teacher) it casts the convolutions' parameters once; for a model
+under training it leaves every parameter f32, the master copy the optimizer
+updates, and only records the dtype (flax `dtype` without `param_dtype`,
+`layers.py:125-134`). BatchNorm and InstanceNorm keep their statistics and
+arithmetic in at least f32 and hand the input's dtype on, as the JAX
+`TorchBatchNorm` does (`layers.py:57-83`).
 """
 
 from __future__ import annotations
@@ -29,9 +36,55 @@ class BatchNorm2d(nn.BatchNorm2d):
         return super().forward(x.to(dt)).to(x.dtype)
 
 
+class InstanceNorm2d(nn.InstanceNorm2d):
+    """torch InstanceNorm2d(affine=False, eps 1e-5, no running statistics),
+    normalized in at least f32 (`layers.py:185-194`)."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, affine=False,
+                         track_running_stats=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(torch.float32, x.dtype)
+        return super().forward(x.to(dt)).to(x.dtype)
+
+
+def _cast(p, dtype):
+    return None if p is None else p.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """Convolution in its input's dtype: an f32 master weight is cast to a
+    bf16 input's dtype per call (a no-op when they agree)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, _cast(self.weight, x.dtype),
+                                  _cast(self.bias, x.dtype))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """Transposed convolution in its input's dtype, as `Conv2d`."""
+
+    def forward(self, x: torch.Tensor, output_size=None) -> torch.Tensor:
+        assert output_size is None
+        return F.conv_transpose2d(
+            x, _cast(self.weight, x.dtype), _cast(self.bias, x.dtype),
+            self.stride, self.padding, self.output_padding, self.groups,
+            self.dilation)
+
+
 def conv(cin: int, cout: int, kernel: int, stride: int = 1,
-         padding: int = 0, bias: bool = False) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride, padding, bias=bias)
+         padding: int = 0, bias: bool = False) -> Conv2d:
+    return Conv2d(cin, cout, kernel, stride, padding, bias=bias)
+
+
+def conv_transpose(cin: int, cout: int, kernel: int = 4, stride: int = 2,
+                   padding: int = 1, output_padding: int = 0,
+                   bias: bool = False) -> ConvTranspose2d:
+    """torch sizing, out = (in-1)*s - 2p + k + output_padding, which the
+    JAX package reproduces with explicit padding (`layers.py:139-166`)."""
+    return ConvTranspose2d(cin, cout, kernel, stride, padding, output_padding,
+                           bias=bias)
 
 
 class UpsampleNearest(nn.Module):
@@ -45,11 +98,30 @@ class UpsampleNearest(nn.Module):
         return F.interpolate(x, scale_factor=self.factor, mode="nearest")
 
 
-def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast every (transposed) convolution to `dtype`; BatchNorm stays f32.
-    The model casts its input to the first convolution's dtype and its
-    output back to at least f32."""
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype,
+                      trainable: bool = False) -> nn.Module:
+    """Make `model` compute its convolutions in `dtype`; norms stay f32.
+
+    `trainable=False` is for a frozen model only (eval, the KD teacher):
+    the convolutions' parameters themselves are cast to `dtype`, once, and
+    every parameter stops requiring a gradient, so no optimizer can come to
+    update bf16 weights. `trainable=True` is for a model under training: all
+    parameters stay f32 and each convolution casts its weight per call.
+    Either way the model casts its input to `dtype` and its output back to
+    at least f32."""
+    if trainable:
+        model.compute_dtype = dtype
+        return model
+    model.compute_dtype = None
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             m.to(dtype)
-    return model
+    return model.requires_grad_(False)
+
+
+def compute_dtype_of(model: nn.Module, first_conv: nn.Module) -> torch.dtype:
+    """The dtype `model.forward` casts its input to: the one recorded by
+    `set_compute_dtype(..., trainable=True)`, else the first convolution's
+    parameter dtype."""
+    dt = getattr(model, "compute_dtype", None)
+    return first_conv.weight.dtype if dt is None else dt

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import BatchNorm2d, UpsampleNearest, conv
+from .layers import BatchNorm2d, UpsampleNearest, compute_dtype_of, conv
 from .pose_resnet import BasicBlock, Bottleneck
 
 BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
@@ -137,7 +137,7 @@ class PoseHighResolutionNet(nn.Module):
                                 bias=True)
 
     def forward(self, x):
-        x = x.to(self.conv1.weight.dtype)
+        x = x.to(compute_dtype_of(self, self.conv1))
         x = torch.relu(self.bn1(self.conv1(x)))
         x = torch.relu(self.bn2(self.conv2(x)))
         xs = [self.layer1(x)]

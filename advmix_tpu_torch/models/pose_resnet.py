@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import BatchNorm2d, conv
+from .layers import BatchNorm2d, compute_dtype_of, conv, conv_transpose
 
 RESNET_SPEC = {
     18: ("basic", (2, 2, 2, 2)),
@@ -112,8 +112,8 @@ class PoseResNet(nn.Module):
             output_padding = {4: 0, 3: 1, 2: 0}[k]
             cout = num_deconv_filters[i]
             deconv += [
-                nn.ConvTranspose2d(inplanes, cout, k, 2, padding,
-                                   output_padding, bias=deconv_with_bias),
+                conv_transpose(inplanes, cout, k, 2, padding, output_padding,
+                               bias=deconv_with_bias),
                 BatchNorm2d(cout),
                 nn.ReLU(inplace=True),
             ]
@@ -124,7 +124,7 @@ class PoseResNet(nn.Module):
                                 pad, bias=True)
 
     def forward(self, x):
-        x = x.to(self.conv1.weight.dtype)
+        x = x.to(compute_dtype_of(self, self.conv1))
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         out = self.final_layer(self.deconv_layers(x))

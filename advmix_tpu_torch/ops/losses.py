@@ -1,4 +1,5 @@
-"""Per-sample pose losses on NCHW heatmaps, as the eval metrics use them.
+"""Pose losses on NCHW heatmaps: batch means for training, per-sample
+values for the eval metrics.
 
 Port of `advmix_tpu/ops/losses.py` (reference `lib/core/loss.py`). The
 reference's `JointsMSELoss` flag is inverted (`lib/core/loss.py:16-21`):
@@ -51,3 +52,24 @@ def joints_ohkm_loss_per_sample(output: torch.Tensor, target: torch.Tensor,
     per_joint = 0.5 * ((pred - gt) ** 2).mean(dim=2)
     topk_vals = torch.sort(per_joint, dim=1).values[:, -topk:]
     return topk_vals.sum(dim=1) / topk
+
+
+def joints_loss(output: torch.Tensor, target: torch.Tensor,
+                target_weight: torch.Tensor, use_target_weight: bool = True,
+                criterion: str = "smooth_l1") -> torch.Tensor:
+    """JointsMSELoss: 0.5 * the criterion's mean over (batch, pixels) per
+    joint, averaged over joints (`lib/core/loss.py:46-65`)."""
+    pred, gt = _weighted(output, target, target_weight, use_target_weight)
+    diff = pred - gt
+    per_elem = diff * diff if criterion == "mse" else smooth_l1(diff)
+    per_joint = per_elem.mean(dim=(0, 2))  # (J,)
+    return 0.5 * per_joint.sum() / output.shape[1]
+
+
+def joints_ohkm_loss(output: torch.Tensor, target: torch.Tensor,
+                     target_weight: torch.Tensor,
+                     use_target_weight: bool = True,
+                     topk: int = 8) -> torch.Tensor:
+    """Batch mean of `joints_ohkm_loss_per_sample`."""
+    return joints_ohkm_loss_per_sample(output, target, target_weight,
+                                       use_target_weight, topk).mean()

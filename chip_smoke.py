@@ -22,7 +22,16 @@ Phases, each fatal on failure:
    port's validate() on a synthetic COCO val set, counting the kernels'
    launches on that run, and read the decode kernel's time inside the
    eval step from the profiler;
-5. print a `kernels` JSON line and, last, the device JSON line.
+5. training: experiments/coco/hrnet/w32_256x192_advmix.yaml through the
+   port's train entry point (`tools/train.main`, --advmix --sample_times 3:
+   HRNet-W32 D and teacher, UNet G, bf16 with f32 master weights, device
+   warp) for one epoch of a few iterations of batch 32 on a synthetic COCO
+   train set, with the per-epoch validate() (the three kernels launch
+   again), a checkpoint, a final state, and a second call that resumes and
+   trains nothing; the step's invariants asserted on the card; one f32
+   step on the card against the same step on the CPU; the step, the view
+   synthesis and both timed at batch 32 and 128 and profiled;
+6. print a `kernels` JSON line and, last, the device JSON line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -138,7 +147,10 @@ def profiled(fn, steps: int = 3):
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # device activities only: the optimizer's "Optimizer.step#..." span
+        # is an annotation mirrored onto the device's timeline, not a kernel
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.name.startswith("Optimizer."):
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     return wall_us, by_name
@@ -516,8 +528,14 @@ def oks_route_timing(dev, rng, m: int = 4096, big: int = 100) -> None:
 def write_coco_val(root: str, rng, n_images: int = 47, big: int = 130):
     """person_keypoints_val2017.json with n_images images of 2..20 people
     and one image of `big` people. Returns the per-image person counts."""
-    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
     counts = [int(c) for c in rng.randint(2, 21, n_images)] + [big]
+    return write_coco(root, "val2017", counts, rng)
+
+
+def write_coco(root: str, image_set: str, counts, rng):
+    """person_keypoints_<image_set>.json with one 640x480 image per entry
+    of `counts`, holding that many people. Returns `counts`."""
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
     images, anns = [], []
     aid = 1
     for i, n in enumerate(counts, start=1):
@@ -536,10 +554,379 @@ def write_coco_val(root: str, rng, n_images: int = 47, big: int = 130):
                              area=float(w * h), iscrowd=0))
             aid += 1
     with open(os.path.join(root, "annotations",
-                           "person_keypoints_val2017.json"), "w") as f:
+                           f"person_keypoints_{image_set}.json"), "w") as f:
         json.dump(dict(images=images, annotations=anns,
                        categories=[dict(id=1, name="person")]), f)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5: AdvMix training through the train entry point
+# ---------------------------------------------------------------------------
+
+TRAIN_ITERS = 3
+ALPHA, ADV_W = 0.1, 0.7
+
+
+def family_of(kernel_name: str) -> str:
+    """A coarse family for a profiler kernel name."""
+    n = kernel_name.lower()
+    for key, fam in (("batch_norm", "batch norm"), ("batchnorm", "batch norm"),
+                     ("bn_fw", "batch norm"),
+                     ("bn_bw", "batch norm"), ("wgrad", "conv wgrad"),
+                     ("dgrad", "conv dgrad"), ("gemm", "conv/gemm"),
+                     ("conv", "conv/gemm"), ("cutlass", "conv/gemm"),
+                     ("xmma", "conv/gemm"), ("copy", "dtype cast / copy"),
+                     ("scatter", "scatter/gather"), ("gather", "scatter/gather"),
+                     ("multi_tensor", "optimizer (foreach)"),
+                     ("upsample", "upsample"), ("reduce", "reduce"),
+                     ("elementwise", "elementwise")):
+        if key in n:
+            return fam
+    return "other"
+
+
+def profile_train(both, steps: int = 2) -> dict:
+    """Device busy share and device time by kernel family of `steps`
+    iterations (view synthesis + AdvMix step), from torch.profiler."""
+    wall_us, by_name = profiled(both, steps)
+    busy_us = sum(t for t, _ in by_name.values())
+    fams: dict = {}
+    for name, (t, n) in by_name.items():
+        ft, fn_ = fams.get(family_of(name), (0.0, 0))
+        fams[family_of(name)] = (ft + t, fn_ + n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(
+        wall_ms=wall_us / steps / 1e3, busy_ms=busy_us / steps / 1e3,
+        busy_share=busy_us / wall_us,
+        kernels=sum(n for _, n in by_name.values()) // steps,
+        families={k: (t / steps / 1e3, n // steps) for k, (t, n) in
+                  sorted(fams.items(), key=lambda kv: -kv[1][0])},
+        top=[(name[:80], t / steps / 1e3, n // steps)
+             for name, (t, n) in top])
+
+
+def check_step_on_card(result, cfg, dev, raw_batch) -> None:
+    """One more AdvMix iteration on the trained state, watched: the D
+    gradients the D step left are still there after the G step, the mixing
+    weights sum to 1, and loss_g is -ADV_W times a positive loss of the
+    updated D on the saved mix."""
+    import copy
+
+    from advmix_tpu_torch.engine.steps import (_loss_fn_for,
+                                               make_advmix_step, mix_views)
+    from advmix_tpu_torch.engine.trainer import make_preprocessor
+
+    state = result["state"]
+    prep = make_preprocessor(cfg, advmix=True, device=dev, device_warp=True)
+    batch = prep(raw_batch, torch.Generator().manual_seed(5))
+    step = make_advmix_step(state, cfg, alpha=ALPHA, adv_loss_weight=ADV_W)
+    left = {}
+    hook = state.optimizer_d.register_step_pre_hook(
+        lambda *_: left.update({n: p.grad.clone() for n, p in
+                                state.model_d.named_parameters()}))
+    metrics = step(batch)
+    hook.remove()
+    if not left or not all(torch.isfinite(g).all() for g in left.values()):
+        raise AssertionError("the D step left no finite gradients")
+    for n, p in state.model_d.named_parameters():
+        if not torch.equal(p.grad, left[n]):
+            raise AssertionError(f"the G step changed D's gradient of {n}")
+    w = step.last_mix_weights
+    if w.dtype != torch.float32 or w.shape[1] != 3 or not torch.allclose(
+            w.sum(1), torch.ones_like(w[:, 0]), atol=1e-5):
+        raise AssertionError("the mixing weights do not sum to 1 per pixel")
+    # train-mode BN normalizes with the batch's statistics, so a copy of
+    # the updated D gives the G step's loss again on the same mix
+    views = batch["views"]
+    mixed = sum(views[:, 3 * k: 3 * k + 3] * w[:, k: k + 1] for k in range(3))
+    with torch.no_grad():
+        out = copy.deepcopy(state.model_d).train()(mixed)
+        loss = float(_loss_fn_for(cfg)(out, batch["target"],
+                                       batch["target_weight"]))
+    loss_g = float(metrics["loss_g"])
+    if not (loss > 0 and abs(loss_g + ADV_W * loss) <= 2e-2 * abs(loss_g)):
+        raise AssertionError(f"loss_g {loss_g} is not -{ADV_W} x the loss "
+                             f"{loss} of the updated D on the saved mix")
+    log(f"[train] watched step: D's {len(left)} gradients are what the D "
+        f"step left; mixing weights f32, sum to 1; loss_g {loss_g:.6f} = "
+        f"-{ADV_W} x {loss:.6f} (bf16 forward recomputed, limit 2% apart)")
+
+
+def step_card_vs_cpu(cfg, start_path: str, dev, dtype: torch.dtype,
+                     batch_size: int = 4) -> dict:
+    """One AdvMix step (SGD, TF32 off) at full width in `dtype` on the card
+    and on the CPU, from the same state and the same views. Returns, for D
+    and for G, the difference of the parameters after the step over their
+    update, in the max norm and in the 2-norm over the whole net (as the
+    forward check takes max |diff| over max |ref|: a conv bias in front of
+    a norm has a zero gradient, so its own update is rounding noise and no
+    yardstick), and both sides' metrics."""
+    from advmix_tpu_torch.engine.state import create_advmix_state
+    from advmix_tpu_torch.engine.steps import make_advmix_step
+    from advmix_tpu_torch.models import (get_generator, get_pose_net,
+                                         load_model_file)
+
+    cfg = cfg.clone()
+    cfg.defrost()
+    cfg.TRAIN.OPTIMIZER = "sgd"  # Adam's first step is lr * sign(grad):
+    cfg.TRAIN.LR = 0.01          # it would hide the gradients' sizes
+    cfg.TRAIN.DTYPE = "float32"
+    cfg.freeze()
+    rng = np.random.RandomState(SEED + 7)
+    w, h = cfg.MODEL.IMAGE_SIZE
+    hw, hh = cfg.MODEL.HEATMAP_SIZE
+    batch = dict(
+        views=torch.from_numpy(rng.randn(batch_size, 9, h, w)).to(dtype),
+        target=torch.from_numpy(rng.rand(batch_size, 17, hh, hw)).to(dtype),
+        target_weight=torch.from_numpy(
+            (rng.rand(batch_size, 17) > 0.2).astype(np.float64)).to(dtype))
+    after = {}
+    for key, where in (("cpu", torch.device("cpu")), ("card", dev)):
+        model = get_pose_net(cfg)
+        load_model_file(model, start_path)
+        g = get_generator()
+        with torch.no_grad():  # G's N(0, 0.001) init gives ~0 logits
+            for p_ in g.parameters():
+                p_.mul_(30.0)
+        model, g = model.to(dtype), g.to(dtype)
+        start = {"d": {k: v.clone() for k, v in model.state_dict().items()},
+                 "g": {k: v.clone() for k, v in g.state_dict().items()}}
+        state = create_advmix_state(cfg, model, g, where, dtype)
+        step = make_advmix_step(state, cfg, alpha=ALPHA,
+                                adv_loss_weight=ADV_W)
+        metrics = step({k: v.to(where) for k, v in batch.items()})
+        after[key] = dict(
+            d={k: v.cpu() for k, v in state.model_d.state_dict().items()},
+            g={k: v.cpu() for k, v in state.model_g.state_dict().items()},
+            m={k: float(v) for k, v in metrics.items()})
+        del state, step, model, g
+    out = dict(cpu=after["cpu"]["m"], card=after["card"]["m"])
+    for net in ("d", "g"):
+        moved = diff = moved2 = diff2 = 0.0
+        for k, ref in after["cpu"][net].items():
+            if ref.is_floating_point() and "running_" not in k:
+                upd = (ref - start[net][k]).double()
+                err = (after["card"][net][k] - ref).double()
+                moved = max(moved, float(upd.abs().max()))
+                diff = max(diff, float(err.abs().max()))
+                moved2 += float((upd * upd).sum())
+                diff2 += float((err * err).sum())
+        out[net] = dict(max=diff / moved, l2=(diff2 / moved2) ** 0.5)
+    return out
+
+
+def train_phase(dev, tmp: str, start_path: str, dataset_cls, kernel_fns):
+    """Phase 5. Returns the kernels' launch counts on the training path."""
+    from advmix_tpu_torch.engine.trainer import to_device
+    from advmix_tpu_torch.models import (get_generator, get_pose_net,
+                                         load_model_file)
+    from advmix_tpu_torch.tools import train as train_tool
+    from advmix_tpu_torch.tools.bench import time_advmix_largest_fit
+
+    # 26 images of 4 people: 104 boxes, TRAIN_ITERS batches of 32 (drop_last)
+    write_coco(tmp, "train2017", [4] * 26, np.random.RandomState(SEED + 4))
+    out_dir = os.path.join(tmp, "train_out")
+    argv = ["--cfg", CFG, "--advmix", "--sample_times", "3", "--alpha",
+            str(ALPHA), "--adv_loss_weight", str(ADV_W), "--modelDir",
+            out_dir, "--logDir", os.path.join(tmp, "train_log"),
+            "--load_from_D", start_path, "DATASET.ROOT", tmp,
+            "TRAIN.END_EPOCH", "1", "PRINT_FREQ", "1"]
+
+    def build(cfg, is_train, image_set=None):
+        return dataset_cls(cfg, is_train, image_set)
+
+    for fn in kernel_fns:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = train_tool.main(argv, build_dataset=build)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernel_fns}
+    log(f"[train] tools/train.main --advmix --sample_times 3, 1 epoch of "
+        f"{TRAIN_ITERS} iterations of batch 32 + validate(): {wall:.2f} s "
+        f"(cuDNN autotuning and first launches included), peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"kernel launches {launches}")
+    for k, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"{k} was not launched on the training path")
+
+    state, history = result["state"], result["history"]
+    if len(history) != 1 or len(history[0]) != TRAIN_ITERS:
+        raise AssertionError(f"trained {[len(h) for h in history]} iterations")
+    for i, m in enumerate(history[0]):
+        log(f"[train] iteration {i}: loss_d {m['loss_d']:.6f} loss_g "
+            f"{m['loss_g']:.6f} acc {m['acc']:.4f}")
+        if not (np.isfinite(m["loss_d"]) and np.isfinite(m["loss_g"])
+                and m["loss_d"] > 0 and m["loss_g"] < 0):
+            raise AssertionError(f"iteration {i}: losses {m}")
+    if not np.isfinite(result["perf"]):
+        raise AssertionError(f"validation score {result['perf']}")
+
+    start = torch.load(start_path, map_location="cpu")
+    sd_d = {k: v.cpu() for k, v in state.model_d.state_dict().items()}
+    g0 = get_generator().state_dict()
+    sd_g = {k: v.cpu() for k, v in state.model_g.state_dict().items()}
+    for name, sd, ref in (("D", sd_d, start), ("G", sd_g, g0)):
+        floats = [k for k, v in sd.items() if v.is_floating_point()]
+        if not all(sd[k].dtype == torch.float32 for k in floats):
+            raise AssertionError(f"{name} holds parameters that are not f32")
+        changed = sum(not torch.equal(sd[k], ref[k]) for k in floats)
+        if changed < 0.9 * len(floats):
+            raise AssertionError(f"only {changed} of {len(floats)} tensors "
+                                 f"of {name} changed")
+    tracked = {int(v) - int(start[k]) for k, v in sd_d.items()
+               if k.endswith("num_batches_tracked")}
+    if tracked != {2 * TRAIN_ITERS}:
+        raise AssertionError(f"D's num_batches_tracked rose by {tracked}, "
+                             f"expected {2 * TRAIN_ITERS}: two train-mode "
+                             "forwards per iteration")
+    convs = 0
+    for k, v in state.teacher.state_dict().items():
+        want = start[k]
+        if v.dtype == torch.bfloat16:
+            want = want.to(torch.bfloat16)
+            convs += 1
+        if not torch.equal(v.cpu(), want):
+            raise AssertionError(f"the teacher's {k} moved")
+    if state.teacher.training or convs == 0:
+        raise AssertionError("the teacher is not a frozen bf16 eval model")
+    log(f"[train] D and G changed and are f32; the teacher ({convs} bf16 "
+        "conv tensors, f32 BN) is bit-equal to its start; D's BN layers "
+        f"counted {2 * TRAIN_ITERS} batches")
+
+    cfg = result["cfg"]
+    final = get_pose_net(cfg)
+    load_model_file(final, result["final_state"])
+    for k, v in final.state_dict().items():
+        if not torch.equal(v, sd_d[k]):
+            raise AssertionError(f"final_state differs from D at {k}")
+    for name in ("checkpoint.pth", "model_best.pth"):
+        if not os.path.isfile(os.path.join(result["output_dir"], name)):
+            raise AssertionError(f"{name} was not written")
+
+    t0 = time.perf_counter()
+    again = train_tool.main(argv, build_dataset=build)
+    if again["begin_epoch"] != 1 or again["history"]:
+        raise AssertionError("the second call did not resume at epoch 1")
+    for k, v in again["state"].model_d.state_dict().items():
+        if not torch.equal(v.cpu(), sd_d[k]):
+            raise AssertionError(f"the resumed D differs at {k}")
+    for k, v in again["state"].model_g.state_dict().items():
+        if not torch.equal(v.cpu(), sd_g[k]):
+            raise AssertionError(f"the resumed G differs at {k}")
+    if again["state"].step != TRAIN_ITERS:
+        raise AssertionError("the resumed step count is wrong")
+    log(f"[train] second call: AUTO_RESUME at epoch 1, nothing trained, D, "
+        f"G and the step count restored ({time.perf_counter() - t0:.2f} s)")
+    del again
+
+    # one more iteration on the trained state, watched
+    ds = dataset_cls(cfg, True, None)
+    samples = [ds.get_raw_sample(i, np.random.RandomState(i),
+                                 tuple(cfg.DATASET.WARP_BUCKET))
+               for i in range(32)]
+    raw = {k: to_device(np.stack([s[k] for s in samples]), dev)
+           for k in ("image", "warp_matrix", "joints", "joints_vis")}
+    check_step_on_card(result, cfg, dev, raw)
+    del result, state, raw
+    torch.cuda.empty_cache()
+
+    # float64 shows that the card runs the same step as the CPU (it agrees
+    # to 1e-12). f32 is what training computes, and its gradients are
+    # chaotic through ~100 train-mode BatchNorms, most of all near the
+    # input, where G's whole gradient comes from: with the f64 step equal,
+    # an f32 G update half its own size apart is rounding, so its limit
+    # only catches a wrong sign or scale
+    limits = {torch.float64: dict(d=1e-6, g=1e-6),
+              torch.float32: dict(d=5e-2, g=1.0)}
+    for dtype, lim in limits.items():
+        r = step_card_vs_cpu(cfg, start_path, dev, dtype)
+        name = str(dtype).replace("torch.", "")
+        log(f"[train] one {name} AdvMix step (SGD, TF32 off, batch 4) on the "
+            f"card vs the CPU, difference of the parameters after the step "
+            f"over their update: D max {r['d']['max']:.3g} (limit "
+            f"{lim['d']:g}) 2-norm {r['d']['l2']:.3g}; G max "
+            f"{r['g']['max']:.3g} (limit {lim['g']:g}) 2-norm "
+            f"{r['g']['l2']:.3g}; loss_d {r['card']['loss_d']:.7f} vs "
+            f"{r['cpu']['loss_d']:.7f}, loss_g {r['card']['loss_g']:.7f} vs "
+            f"{r['cpu']['loss_g']:.7f}")
+        if not (r["d"]["max"] < lim["d"] and r["g"]["max"] < lim["g"]):
+            raise AssertionError(f"{name} step on the card vs the CPU: {r}")
+        torch.cuda.empty_cache()
+
+    # timings, bf16, after warm-up (cuDNN autotunes in the warm-up)
+    for batch_size in (32, 128):
+        t = time_advmix_largest_fit(cfg, dev, batch_size, torch.bfloat16,
+                                    iters=10, inspect=profile_train)
+        note = ("" if t["batch"] == t["asked"] else
+                f" (batch {t['asked']} does not fit in the card's memory; "
+                "the largest power of two that does)")
+        log(f"[train] AdvMix bf16 batch {t['batch']}{note}: view synthesis "
+            f"{t['views_ms']:.3f} ms, step {t['step_ms']:.3f} ms, both "
+            f"{t['both_ms']:.3f} ms/iteration = {t['img_per_s']:.1f} img/s; "
+            f"peak device memory {t['peak_gib']:.2f} GiB; loss_d "
+            f"{t['loss_d']:.5f} loss_g {t['loss_g']:.5f}")
+        if not (np.isfinite(t["loss_d"]) and np.isfinite(t["loss_g"])):
+            raise AssertionError("the timed step's losses are not finite")
+        prof = t["inspect"]
+        log(f"[train] batch {t['batch']} profile of 2 iterations: wall "
+            f"{prof['wall_ms']:.3f} ms/iteration, device busy "
+            f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_share']:.1f}%), "
+            f"{prof['kernels']} kernels per iteration")
+        for fam, (ms, n) in prof["families"].items():
+            log(f"[train]   {ms:9.3f} ms/iteration {n:6d} launches  {fam}")
+        for name, ms, n in prof["top"]:
+            log(f"[train]   top: {ms:9.3f} ms/iteration {n:6d} launches  "
+                f"{name}")
+    return launches
+
+
+
+def synthetic_coco_class():
+    """`COCODataset` with seeded random pixels for its records' images."""
+    from advmix_tpu_torch.data import COCODataset
+    from advmix_tpu_torch.ops.transforms import affine_transform, \
+        get_affine_transform
+
+    class SyntheticCropCOCO(COCODataset):
+        """The COCO records, with seeded random uint8 pixels in place of
+        decoded JPEGs (the records have no images): whole crops on the eval
+        path, and 640x480 source images on the training path, which
+        `get_raw_sample` pads into the warp bucket."""
+
+        eval_seconds = 0.0
+
+        def _read_image(self, path):
+            seed = int(os.path.basename(path).split(".")[0])
+            return np.random.RandomState(seed).randint(
+                0, 256, (480, 640, 3), dtype=np.uint8)
+
+        def get_sample(self, idx, rng):
+            rec = self.records[idx]
+            c = np.asarray(rec["center"], np.float32)
+            s = np.asarray(rec["scale"], np.float32)
+            trans = get_affine_transform(c, s, 0.0, self.image_size)
+            joints = np.stack([affine_transform(p, trans)
+                               for p in rec["joints_3d"][:, :2]])
+            w, h = (int(v) for v in self.image_size)
+            return dict(
+                image=np.random.RandomState(idx).randint(
+                    0, 256, (h, w, 3), dtype=np.uint8),
+                joints=joints.astype(np.float32),
+                joints_vis=rec["joints_3d_vis"][:, 0].astype(np.float32),
+                center=c, scale=s, score=np.float32(rec["score"]),
+                image_path=rec["image"])
+
+        def evaluate(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = super().evaluate(*args, **kwargs)
+            self.eval_seconds = time.perf_counter() - t0
+            return out
+
+    return SyntheticCropCOCO
 
 
 def main() -> None:
@@ -548,7 +935,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, HERE)
     from advmix_tpu_torch.config import get_default_config
-    from advmix_tpu_torch.data import COCODataset, Loader
+    from advmix_tpu_torch.data import Loader
     from advmix_tpu_torch.engine.steps import make_eval_step
     from advmix_tpu_torch.engine.trainer import (make_eval_preprocessor,
                                                  to_device, validate)
@@ -560,8 +947,7 @@ def main() -> None:
         decode_heatmaps, decode_heatmaps_plain)
     from advmix_tpu_torch.ops.cuda.oks_kernel import (oks_matrix,
                                                       oks_matrix_batched)
-    from advmix_tpu_torch.ops.transforms import affine_transform, \
-        get_affine_transform, transform_preds_batch
+    from advmix_tpu_torch.ops.transforms import transform_preds_batch
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -613,34 +999,7 @@ def main() -> None:
     cfg.freeze()
     torch.backends.cudnn.benchmark = bool(cfg.CUDNN.BENCHMARK)
 
-    class SyntheticCropCOCO(COCODataset):
-        """The COCO val records, with seeded random uint8 crops in place
-        of decoded and warped JPEGs (the records have no images)."""
-
-        eval_seconds = 0.0
-
-        def get_sample(self, idx, rng):
-            rec = self.records[idx]
-            c = np.asarray(rec["center"], np.float32)
-            s = np.asarray(rec["scale"], np.float32)
-            trans = get_affine_transform(c, s, 0.0, self.image_size)
-            joints = np.stack([affine_transform(p, trans)
-                               for p in rec["joints_3d"][:, :2]])
-            w, h = (int(v) for v in self.image_size)
-            return dict(
-                image=np.random.RandomState(idx).randint(
-                    0, 256, (h, w, 3), dtype=np.uint8),
-                joints=joints.astype(np.float32),
-                joints_vis=rec["joints_3d_vis"][:, 0].astype(np.float32),
-                center=c, scale=s, score=np.float32(rec["score"]),
-                image_path=rec["image"])
-
-        def evaluate(self, *args, **kwargs):
-            t0 = time.perf_counter()
-            out = super().evaluate(*args, **kwargs)
-            self.eval_seconds = time.perf_counter() - t0
-            return out
-
+    SyntheticCropCOCO = synthetic_coco_class()
     dataset = SyntheticCropCOCO(cfg, is_train=False)
     loader = Loader(dataset, cfg.TEST.BATCH_SIZE_PER_GPU)
     log(f"[path] {os.path.relpath(CFG, HERE)}: {len(dataset)} people in "
@@ -668,6 +1027,9 @@ def main() -> None:
                 mod.running_var.clamp_(min=1e-2)
     model.eval()
     n_params = sum(p.numel() for p in model.parameters())
+    # the training phase starts D and the teacher from these weights
+    start_path = os.path.join(tmp, "d_start.pth")
+    torch.save(model.state_dict(), start_path)
 
     # the model on the card against the same f32 model on the CPU
     x = torch.from_numpy(np.random.RandomState(3).randn(
@@ -753,10 +1115,19 @@ def main() -> None:
         ms_in_step=in_step, ms_after_forward=after["vector"],
         first_design_ms_after_forward=after["scalar"])
 
+    # ---- 5. AdvMix training through the train entry point -----------------
+    del model, eval_step, batch, heat
+    torch.cuda.empty_cache()
+    train_launches = train_phase(
+        dev, tmp, start_path, SyntheticCropCOCO,
+        (decode_heatmaps, oks_matrix_batched, oks_matrix))
+
     kernels = []
     for k in ("decode_heatmaps", "oks_matrix_batched", "oks_matrix"):
         r = dict(report[k])
+        # the eval path's count; the training path's own beside it
         r["launches"] = launches[k]
+        r["launches_train"] = train_launches[k]
         kernels.append(r)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

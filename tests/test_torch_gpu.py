@@ -135,3 +135,143 @@ def test_cuda_oks_takes_a_4_byte_aligned_view(cuda):
     at = torch.from_numpy(areas.astype(np.float32)).to(cuda)
     assert torch.equal(oks_matrix_batched(shifted_view(kt), shifted_view(at)),
                        oks_matrix_batched(kt, at))
+
+
+# ---------------------------------------------------------------------------
+# AdvMix training on the card (no hand kernel: torch and cuDNN ops)
+# ---------------------------------------------------------------------------
+
+def _tiny_train_cfg():
+    from advmix_tpu_torch.config import get_default_config
+
+    cfg = get_default_config()
+    cfg.MODEL.NAME = "pose_resnet"
+    cfg.MODEL.NUM_JOINTS = 6
+    cfg.MODEL.IMAGE_SIZE = [64, 64]
+    cfg.MODEL.HEATMAP_SIZE = [16, 16]
+    cfg.MODEL.EXTRA.NUM_LAYERS = 18
+    cfg.MODEL.EXTRA.NUM_DECONV_LAYERS = 3
+    cfg.MODEL.EXTRA.NUM_DECONV_FILTERS = [32, 32, 32]
+    cfg.MODEL.EXTRA.NUM_DECONV_KERNELS = [4, 4, 4]
+    cfg.MODEL.EXTRA.DECONV_WITH_BIAS = False
+    cfg.MODEL.EXTRA.FINAL_CONV_KERNEL = 1
+    cfg.TRAIN.OPTIMIZER = "adam"
+    return cfg
+
+
+@pytest.mark.gpu
+def test_cuda_views_equal_cpu_views(cuda):
+    """The 3-view synthesis on the card is the CPU's to the bit in f32 for
+    integer-valued crops: integer histograms, exact LUTs, masks."""
+    from advmix_tpu_torch.ops.augment import (draw_advmix_views,
+                                              make_advmix_views)
+
+    img = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (8, 3, 64, 48)).astype(np.float32))
+    draws = draw_advmix_views(8, 64, 48, torch.Generator().manual_seed(1))
+    want = make_advmix_views(img, draws=draws)
+    on_card = {part: {k: v.to(cuda) for k, v in d.items()}
+               for part, d in draws.items()}
+    got = make_advmix_views(img.to(cuda), draws=on_card)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-6)
+    seeded = make_advmix_views(img.to(cuda),
+                               torch.Generator().manual_seed(1))
+    assert torch.equal(seeded, got)  # the draws do not depend on the device
+
+
+@pytest.mark.gpu
+def test_cuda_warp_affine_equals_cpu(cuda):
+    from advmix_tpu_torch.ops.transforms import (get_affine_transform,
+                                                 warp_affine)
+
+    rng = np.random.RandomState(2)
+    img = torch.from_numpy(rng.randint(0, 256, (4, 200, 240, 3)).astype(
+        np.uint8))
+    mats = torch.from_numpy(np.stack([get_affine_transform(
+        rng.uniform(60, 140, 2), rng.uniform(0.4, 1.2) * np.ones(2),
+        rng.uniform(-40, 40), (48, 64)) for _ in range(4)]).astype(
+            np.float32))
+    want = warp_affine(img, mats, (48, 64))
+    got = warp_affine(img.to(cuda), mats.to(cuda), (48, 64)).cpu()
+    # f32 coordinates; the card may contract a*x + b*y + c into FMAs
+    torch.testing.assert_close(got, want, rtol=0, atol=0.05)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_advmix_step_invariants(cuda, dtype):
+    """Two AdvMix iterations on the card: f32 master weights, two BN
+    updates per iteration, an untouched teacher, finite losses of the
+    right signs."""
+    from advmix_tpu_torch.engine.state import create_advmix_state
+    from advmix_tpu_torch.engine.steps import make_advmix_step
+    from advmix_tpu_torch.models import get_pose_net
+    from advmix_tpu_torch.models.unet import UnetGenerator
+
+    cfg = _tiny_train_cfg()
+    state = create_advmix_state(cfg, get_pose_net(cfg),
+                                UnetGenerator(ngf=8), cuda, dtype)
+    teacher0 = {k: v.clone() for k, v in state.teacher.state_dict().items()}
+    d0 = [p.detach().clone() for p in state.model_d.parameters()]
+    step = make_advmix_step(state, cfg, alpha=0.3, adv_loss_weight=0.7)
+    rng = np.random.RandomState(3)
+    for _ in range(2):
+        batch = dict(
+            views=torch.from_numpy(rng.randn(4, 9, 64, 64).astype(
+                np.float32)).to(cuda, dtype),
+            target=torch.from_numpy(rng.rand(4, 6, 16, 16).astype(
+                np.float32)).to(cuda),
+            target_weight=torch.ones(4, 6, device=cuda))
+        m = {k: float(v) for k, v in step(batch).items()}
+        assert np.isfinite(m["loss_d"]) and m["loss_d"] > 0 > m["loss_g"]
+        w = step.last_mix_weights
+        assert w.dtype == torch.float32
+        torch.testing.assert_close(w.sum(1), torch.ones_like(w[:, 0]))
+    assert all(p.dtype == torch.float32 for p in state.model_d.parameters())
+    assert all(p.dtype == torch.float32 for p in state.model_g.parameters())
+    assert any(not torch.equal(a, b) for a, b in
+               zip(d0, state.model_d.parameters()))
+    assert int(state.model_d.bn1.num_batches_tracked) == 4
+    for k, v in state.teacher.state_dict().items():
+        assert torch.equal(v, teacher0[k])
+
+
+@pytest.mark.gpu
+def test_cuda_f32_advmix_step_matches_cpu(cuda):
+    """One f32 SGD AdvMix step of PoseResNet-18 on the card against the CPU
+    (TF32 off): every parameter within 2e-2 of its tensor's largest
+    update."""
+    from advmix_tpu_torch.engine.state import create_advmix_state
+    from advmix_tpu_torch.engine.steps import make_advmix_step
+    from advmix_tpu_torch.models import get_pose_net, he_reinit_convs
+    from advmix_tpu_torch.models.unet import UnetGenerator
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _tiny_train_cfg()
+    cfg.TRAIN.OPTIMIZER = "sgd"
+    cfg.TRAIN.LR = 0.01
+    rng = np.random.RandomState(4)
+    batch = dict(
+        views=torch.from_numpy(rng.randn(4, 9, 64, 64).astype(np.float32)),
+        target=torch.from_numpy(rng.rand(4, 6, 16, 16).astype(np.float32)),
+        target_weight=torch.ones(4, 6))
+    after = []
+    for dev in (torch.device("cpu"), cuda):
+        model = get_pose_net(cfg)
+        he_reinit_convs(model, torch.Generator().manual_seed(0))
+        g = UnetGenerator(ngf=8)
+        he_reinit_convs(g, torch.Generator().manual_seed(1))
+        with torch.no_grad():  # the constructor drew them unseeded
+            for name, p in g.named_parameters():
+                if name.endswith("bias"):
+                    p.zero_()
+        start = [p.detach().clone() for p in model.parameters()]
+        state = create_advmix_state(cfg, model, g, dev, torch.float32)
+        make_advmix_step(state, cfg, 0.3, 0.7)(
+            {k: v.to(dev) for k, v in batch.items()})
+        after.append([p.detach().cpu() for p in state.model_d.parameters()])
+    for p0, a, b in zip(start, *after):
+        moved = float((a - p0).abs().max())
+        assert moved > 0
+        assert float((a - b).abs().max()) <= 2e-2 * moved
