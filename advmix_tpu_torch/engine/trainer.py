@@ -19,6 +19,8 @@ import numpy as np
 import torch
 
 from ..ops.augment import IMAGENET_MEAN, IMAGENET_STD, make_advmix_views
+from ..ops.corruptions import BENCHMARK_CORRUPTIONS, corrupt, \
+    device_generator
 from ..ops.heatmap import generate_target
 from ..ops.transforms import warp_affine
 from ..utils.logging import LOGGER_NAME, AverageMeter, print_name_value
@@ -34,8 +36,38 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def make_random_corruption_fn():
+    """Per-image random (type, severity) corruption for the
+    `--random_corruption` baseline (reference `JointsDataset.py:284-286`
+    draws per image in __getitem__), on one device.
+
+    `fn(img, generator, branches=None)` draws one of the 75 (type,
+    severity) branches of the 15 benchmark corruptions per image of the
+    NHWC float batch from `generator` (on the host: no device sync) and
+    applies each image's branch with its random form, drawing from a
+    generator on the batch's device. `branches` injects the per-image
+    branch indices. The 4 holdout types are never drawn, as the
+    reference's baseline hardcodes the 15 (`JointsDataset.py:259-264`), so
+    the held-out mPC protocol stays uncontaminated."""
+    n_branches = len(BENCHMARK_CORRUPTIONS) * 5
+
+    def fn(img: torch.Tensor, generator: torch.Generator, branches=None):
+        if branches is None:
+            branches = torch.randint(0, n_branches, (img.shape[0],),
+                                     generator=generator).tolist()
+        g = device_generator(generator, img.device)
+        return torch.cat([
+            corrupt(img[i:i + 1], BENCHMARK_CORRUPTIONS[br // 5], br % 5 + 1,
+                    g)
+            for i, br in enumerate(branches)])
+
+    fn.n_branches = n_branches
+    return fn
+
+
 def make_preprocessor(cfg, advmix: bool, device: torch.device,
-                      sp_style: bool = False, device_warp: bool = False):
+                      sp_style: bool = False, device_warp: bool = False,
+                      random_corruption: bool = False):
     """Device-side batch preparation for training: uint8 crops (B, H, W, 3)
     or, with `device_warp`, padded source images and crop matrices
     (`ops/transforms.warp_affine`) -> normalized NCHW views or images, and
@@ -44,7 +76,9 @@ def make_preprocessor(cfg, advmix: bool, device: torch.device,
 
     The views are synthesized at the training compute dtype: in bf16 the
     augment moves half the bytes for at most one uint8 level of drift.
-    `sp_style`: the views take the per-sample `is_style` mask."""
+    `sp_style`: the views take the per-sample `is_style` mask.
+    `random_corruption`: each image gets a random benchmark corruption
+    (`make_random_corruption_fn`) before the views."""
     image_size = tuple(cfg.MODEL.IMAGE_SIZE)
     heatmap_size = tuple(cfg.MODEL.HEATMAP_SIZE)
     sigma = float(cfg.MODEL.SIGMA)
@@ -54,13 +88,17 @@ def make_preprocessor(cfg, advmix: bool, device: torch.device,
                        device=device).view(1, 3, 1, 1) * 255.0
     view_dtype = (torch.bfloat16 if str(cfg.TRAIN.DTYPE) == "bfloat16"
                   else None)
+    corrupt_fn = make_random_corruption_fn() if random_corruption else None
 
     @torch.no_grad()
     def prep(raw, generator):
         img = raw["image"]
         if device_warp:
             img = warp_affine(img, raw["warp_matrix"], image_size)
-        img = img.to(torch.float32).permute(0, 3, 1, 2)  # NHWC -> NCHW
+        img = img.to(torch.float32)
+        if corrupt_fn is not None:
+            img = corrupt_fn(img, generator)
+        img = img.permute(0, 3, 1, 2)  # NHWC -> NCHW
         target, _, tw = generate_target(raw["joints"], raw["joints_vis"],
                                         image_size, heatmap_size, sigma)
         if advmix:
@@ -77,9 +115,15 @@ def make_preprocessor(cfg, advmix: bool, device: torch.device,
     return prep
 
 
-def make_eval_preprocessor(cfg, device: torch.device):
+def make_eval_preprocessor(cfg, device: torch.device,
+                           corruption: str | None = None, severity: int = 1):
     """prep(image_u8 (B, H, W, 3), joints (B, J, 2), joints_vis (B, J)) ->
-    {image: normalized f32 NHWC, target (B, J, Hh, Hw), target_weight}."""
+    {image: normalized f32 NHWC, target (B, J, Hh, Hw), target_weight}.
+
+    With a `corruption` other than "clean" the crops are corrupted first,
+    in the exact-render form at `severity` (1..5), every batch from a
+    generator seeded 1, as the JAX sweep corrupts every batch with
+    PRNGKey(1) (`tools/test_corruption.py:112-125`)."""
     image_size = tuple(cfg.MODEL.IMAGE_SIZE)
     heatmap_size = tuple(cfg.MODEL.HEATMAP_SIZE)
     sigma = float(cfg.MODEL.SIGMA)
@@ -88,8 +132,14 @@ def make_eval_preprocessor(cfg, device: torch.device):
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
                        device=device) * 255.0
 
+    corrupted = corruption not in (None, "", "clean")
+
     def prep(image_u8, joints, joints_vis):
         img = image_u8.to(torch.float32)
+        if corrupted:
+            img = corrupt(img, corruption, severity,
+                          torch.Generator(img.device).manual_seed(1),
+                          exact_render=True)
         target, _, tw = generate_target(joints, joints_vis, image_size,
                                         heatmap_size, sigma)
         return {"image": (img - mean) / std, "target": target,

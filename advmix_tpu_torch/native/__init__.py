@@ -1,10 +1,11 @@
-"""Host C++ NMS scans, built with g++ at first use and loaded via ctypes.
+"""Host C++ NMS scans and glass_blur's swap composition, built with g++
+at first use and loaded via ctypes.
 
 Port of `advmix_tpu/native/__init__.py`. The library is built from this
 package's own copy of `nms.cpp` into `advmix_tpu_torch/_build/`, never
 beside the JAX package's source. Where no g++ exists, every entry point
-falls back to the numpy oracles of `ops/nms.py` and a Python greedy loop,
-as the JAX package does.
+falls back to the numpy oracles of `ops/nms.py` or a Python loop, as the
+JAX package does.
 """
 
 from __future__ import annotations
@@ -64,6 +65,9 @@ def get_lib():
     lib.greedy_from_matrix.argtypes = [_P, _P, ctypes.c_int, ctypes.c_float,
                                        _P]
     lib.greedy_from_matrix.restype = ctypes.c_int
+    lib.glass_compose.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, _P, _P]
+    lib.glass_compose.restype = None
     return lib
 
 
@@ -127,3 +131,43 @@ def greedy_from_matrix(sim: np.ndarray, scores: np.ndarray, thresh: float):
     cnt = lib.greedy_from_matrix(sim.ctypes.data, scores.ctypes.data, n,
                                  thresh, keep.ctypes.data)
     return keep[:cnt].tolist()
+
+
+def glass_compose(h: int, w: int, max_delta: int, iters: int,
+                  deltas: np.ndarray) -> np.ndarray:
+    """Compose glass_blur's sequential interior pixel swaps into one
+    source-index permutation (int32 (h*w,)). deltas: int32 (n_swaps, 2)
+    (dx, dy) in draw order, n_swaps = iters * interior_h * interior_w."""
+    deltas = np.ascontiguousarray(deltas, np.int32)
+    n_h = len(range(h - max_delta, max_delta, -1))
+    n_w = len(range(w - max_delta, max_delta, -1))
+    expected = iters * n_h * n_w
+    if deltas.shape != (expected, 2):
+        raise ValueError(
+            f"deltas shape {deltas.shape} != ({expected}, 2) for "
+            f"h={h} w={w} max_delta={max_delta} iters={iters}")
+    src = np.arange(h * w, dtype=np.int32)
+    lib = get_lib()
+    if lib is not None:
+        lib.glass_compose(h, w, max_delta, iters, deltas.ctypes.data,
+                          src.ctypes.data)
+        return src
+    return glass_compose_py(h, w, max_delta, iters, deltas)
+
+
+def glass_compose_py(h: int, w: int, max_delta: int, iters: int,
+                     deltas: np.ndarray) -> np.ndarray:
+    """The same composition as a Python loop, for a machine without g++
+    (fine for test-sized images)."""
+    src = np.arange(h * w, dtype=np.int32)
+    t = 0
+    for _ in range(iters):
+        for hh in range(h - max_delta, max_delta, -1):
+            base = hh * w
+            for ww in range(w - max_delta, max_delta, -1):
+                dx, dy = deltas[t]
+                t += 1
+                p = base + ww
+                q = (hh + dy) * w + (ww + dx)
+                src[p], src[q] = src[q], src[p]
+    return src

@@ -7,7 +7,8 @@
 // device-matrix + host-scan split (the matrix comes from the port's CUDA
 // OKS kernel, advmix_tpu_torch/csrc/oks.cu). Semantics match the numpy
 // oracles in advmix_tpu_torch/ops/nms.py (reference lib/nms/nms.py).
-// Pure C ABI.
+// Also glass_compose, the host preparation of glass_blur's swap
+// permutation (advmix_tpu_torch/ops/corruptions.py). Pure C ABI.
 
 #include <algorithm>
 #include <cmath>
@@ -137,6 +138,27 @@ int greedy_from_matrix(const float* sim, const float* scores, int n,
     }
   }
   return n_keep;
+}
+
+// Compose imagecorruptions glass_blur's sequential interior pixel swaps
+// (`glass_blur`'s descending double loop) into a single source-index
+// permutation. `src` must come in as the identity permutation (0..h*w-1);
+// deltas holds the (dx, dy) stream in draw order, 2 ints per swap.
+void glass_compose(int h, int w, int max_delta, int iters,
+                   const int* deltas, int* src) {
+  long t = 0;
+  for (int it = 0; it < iters; ++it) {
+    for (int hh = h - max_delta; hh > max_delta; --hh) {
+      for (int ww = w - max_delta; ww > max_delta; --ww) {
+        const int dx = deltas[2 * t], dy = deltas[2 * t + 1];
+        ++t;
+        const int hp = hh + dy, wp = ww + dx;
+        const int a = src[hh * w + ww];
+        src[hh * w + ww] = src[hp * w + wp];
+        src[hp * w + wp] = a;
+      }
+    }
+  }
 }
 
 }  // extern "C"

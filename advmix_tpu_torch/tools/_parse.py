@@ -32,8 +32,9 @@ def parse_args(argv=None):
     p.add_argument("--gen_input_chn", type=int, default=9)
     p.add_argument("--downsamples", type=int, default=6)
 
-    # parsed, not served yet (reject_later_slices)
+    # per-image random benchmark corruption of the training crops
     p.add_argument("--random_corruption", default=False, action="store_true")
+    # parsed, not served yet (reject_later_slices)
     p.add_argument("--stylize_image", default=False, action="store_true")
     p.add_argument("--sp_style", type=float, default=0)
 
@@ -49,9 +50,6 @@ def reject_later_slices(args, cfg) -> None:
     """Stop with an error for every option whose feature the port does not
     have yet."""
     later = []
-    if args.random_corruption:
-        later.append("--random_corruption needs ops/corruptions.py: the "
-                     "corruptions and robustness-sweep slice")
     if args.stylize_image or args.sp_style:
         later.append("--stylize_image / --sp_style need the stylized "
                      "ConcatDataset: the slice of the other top-down "

@@ -1,7 +1,8 @@
 """Training entry point: standard top-down training and AdvMix.
 
     python -m advmix_tpu_torch.tools.train --cfg <yaml> [--advmix \
-        --sample_times 3] [--device cpu] [KEY VALUE ...]
+        --sample_times 3] [--random_corruption] [--device cpu] \
+        [KEY VALUE ...]
 
 Port of `tools/train.py` for the top-down branches: the model (and, under
 --advmix, the teacher copy and the UNet generator, :64-69), datasets and
@@ -109,7 +110,11 @@ def main(argv=None, build_dataset=default_build_dataset):
                 "samples")
 
     prep_train = trainer_lib.make_preprocessor(
-        cfg, advmix=advmix, device=device, device_warp=device_warp)
+        cfg, advmix=advmix, device=device, device_warp=device_warp,
+        random_corruption=args.random_corruption)
+    if args.random_corruption:
+        logger.info("=> --random_corruption: a random benchmark corruption "
+                    "per training image")
     prep_eval = trainer_lib.make_eval_preprocessor(cfg, device)
     eval_step = steps.make_eval_step(model, cfg, valid_dataset.flip_pairs)
 

@@ -31,7 +31,24 @@ Phases, each fatal on failure:
    trains nothing; the step's invariants asserted on the card; one f32
    step on the card against the same step on the CPU; the step, the view
    synthesis and both timed at batch 32 and 128 and profiled;
-6. print a `kernels` JSON line and, last, the device JSON line.
+6. corruptions (advmix_tpu_torch/ops/corruptions.py): every deterministic
+   form (the 8 key-free types; the exact-render forms of glass, motion,
+   snow, elastic and spatter, spatter's water arm only where cv2 imports)
+   at severities 1..5 on 4 seeded 256x192 crops, on the card with TF32
+   allowed (torch's cuDNN default, and 'high' matmul precision) against the
+   CPU, in uint8: at most 1 level and 0.5% of values apart; the traced
+   forms of all 19 types on the card: shape, finite, range, two seeds
+   differ; each of the 19 types in both forms timed at the sweep's
+   (128, 256, 192, 3) with CUDA events, device time and launches per call
+   from the profiler;
+7. the robustness sweep through its entry point (`tools/test_corruption.main
+   --on_the_fly`): HRNet-W32 256x192 at batch 128, clean + the 15
+   benchmark types x 5 severities = 76 passes over a synthetic one-batch val
+   set of 20 images of 2..8 people, with the phase-4 weights; robust_C.val,
+   the CSV, and the decode and batched OKS launches of every pass checked;
+8. `tools/train.main --random_corruption` (no AdvMix) for 2 iterations of
+   batch 32: losses finite, weights changed;
+9. print a `kernels` JSON line and, last, the device JSON line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -885,6 +902,289 @@ def train_phase(dev, tmp: str, start_path: str, dataset_cls, kernel_fns):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 6: corruptions on the card
+# ---------------------------------------------------------------------------
+
+SWEEP_SHAPE = (128, 256, 192, 3)  # an eval batch of crops, NHWC
+
+
+def has_cv2() -> bool:
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def deterministic_cases(with_cv2: bool):
+    """(name, severity, exact_render) of every corruption form that draws
+    nothing at random: the key-free types and the exact-render forms
+    (spatter's water arm, severities 1-3, needs cv2)."""
+    from advmix_tpu_torch.ops import corruptions as C
+
+    cases = [(n, s, False) for n in C.ALL_CORRUPTIONS if n not in C.DRAWS
+             for s in range(1, 6)]
+    cases += [(n, s, True) for n in ("glass_blur", "motion_blur", "snow",
+                                     "elastic_transform")
+              for s in range(1, 6)]
+    cases += [("spatter", s, True) for s in ((1, 2, 3, 4, 5) if with_cv2
+                                             else (4, 5))]
+    return cases
+
+
+def card_vs_cpu(x_cpu: torch.Tensor, dev, name: str, severity: int,
+                exact: bool) -> tuple[int, float]:
+    """One corruption on the card and on the CPU, compared in uint8 after
+    clip and truncation: (largest level difference, share of values that
+    differ)."""
+    from advmix_tpu_torch.ops.corruptions import corrupt
+
+    def u8(x):
+        return corrupt(x, name, severity, exact_render=exact).clamp(
+            0, 255).to(torch.uint8).cpu().to(torch.int16)
+
+    d = (u8(x_cpu.to(dev)) - u8(x_cpu)).abs()
+    return int(d.max()), float((d > 0).float().mean())
+
+
+def corruption_phase(dev) -> dict:
+    """Phase 6. Returns {(name, form): (wall ms, device ms, launches)} at
+    SWEEP_SHAPE."""
+    from advmix_tpu_torch.ops import corruptions as C
+
+    cv2_ok = has_cv2()
+    log(f"[corrupt] import cv2 on this machine: "
+        f"{'works' if cv2_ok else 'fails'}; spatter's exact water arm "
+        f"(severities 1-3) is {'checked' if cv2_ok else 'left out'}")
+    x = torch.from_numpy(np.random.RandomState(SEED + 10).randint(
+        0, 256, (4, 256, 192, 3)).astype(np.float32))
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+    # torch's default for cuDNN, and TF32 matmuls allowed: the module must
+    # keep TF32 out of its own convolutions and matmuls (it sums them in f64)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    worst: dict = {}
+    bad = []
+    try:
+        t0 = time.perf_counter()
+        for name, sev, exact in deterministic_cases(cv2_ok):
+            lv, share = card_vs_cpu(x, dev, name, sev, exact)
+            key = f"{name}{' (exact render)' if exact else ''}"
+            w = worst.get(key, (0, 0.0, []))
+            worst[key] = (max(w[0], lv), max(w[1], share), w[2] + [sev])
+            if lv > 1 or share > 0.005:
+                bad.append(f"{key} severity {sev}: {lv} levels on "
+                           f"{100 * share:.3f}% of values")
+        if torch.backends.cudnn.allow_tf32 is not True or \
+                torch.get_float32_matmul_precision() != "high":
+            raise AssertionError("corrupt changed the caller's TF32 settings")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev[0]
+        torch.set_float32_matmul_precision(prev[1])
+    for key, (lv, share, sevs) in worst.items():
+        log(f"[corrupt] card vs CPU, {key}, severities "
+            f"{','.join(map(str, sevs))}: largest difference {lv} uint8 "
+            f"level(s), {100 * share:.4f}% of values differ at worst "
+            "(limit 1 level, 0.5%; cuDNN TF32 on, matmul precision 'high')")
+    log(f"[corrupt] card vs CPU on {tuple(x.shape)}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError("the card differs from the CPU by more than 1 "
+                             "uint8 level or on more than 0.5% of values: "
+                             + "; ".join(bad))
+
+    # the traced forms of all 19 types, the 6 random-only ones among them
+    xd = x.to(dev)
+    for name in C.ALL_CORRUPTIONS:
+        for sev in range(1, 6):
+            outs = [C.corrupt(xd, name, sev,
+                              torch.Generator(dev).manual_seed(seed))
+                    for seed in (1, 2)]
+            for out in outs:
+                if out.shape != xd.shape or not torch.isfinite(out).all() \
+                        or float(out.min()) < 0 or float(out.max()) > 255:
+                    raise AssertionError(f"{name} severity {sev}: output "
+                                         "not finite or out of [0, 255]")
+            if name in C.DRAWS and torch.equal(outs[0], outs[1]):
+                raise AssertionError(f"{name} severity {sev}: two seeds "
+                                     "gave the same output")
+    log(f"[corrupt] traced forms of all 19 types at severities 1..5 on the "
+        f"card: shape, finite, in [0, 255]; the {len(C.DRAWS)} random ones "
+        "differ between two seeds")
+
+    # timings at the sweep's shape, severity 3
+    big = torch.randint(0, 256, SWEEP_SHAPE, generator=torch.Generator(
+        dev).manual_seed(SEED), device=dev).to(torch.float32)
+    forms = [(n, False) for n in C.ALL_CORRUPTIONS] + [
+        (n, True) for n in C.EXACT_RENDER]
+    out = {}
+    for name, exact in forms:
+        sev = 3 if (cv2_ok or name != "spatter" or not exact) else 4
+        gen = torch.Generator(dev).manual_seed(1)
+
+        def fn(name=name, exact=exact, sev=sev, gen=gen):
+            return C.corrupt(big, name, sev, gen, exact_render=exact)
+
+        wall = wall_ms(fn, iters=5)  # its warm-up fills the constant cache
+        # a profiler window of a few ms can lose its kernels: profile
+        # enough calls for ~100 ms and take the mean per call
+        steps = max(3, min(50, int(100.0 / max(wall, 1e-3)) + 1))
+        _, by_name = profiled(fn, steps=steps)
+        busy = sum(t for t, _ in by_name.values()) / steps / 1e3
+        n = sum(k for _, k in by_name.values()) / steps
+        form = "exact render" if exact else "traced"
+        out[name, form] = (wall, busy, n)
+        log(f"[corrupt] {name:17s} {form:12s} severity {sev} "
+            f"{SWEEP_SHAPE}: {wall:9.3f} ms per call (CUDA events, host "
+            f"included), device {busy:9.3f} ms, {n:7.1f} launches per call "
+            f"(profiler, mean of {steps} calls)")
+    del big, xd
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the sweep and --random_corruption training
+# ---------------------------------------------------------------------------
+
+def sweep_phase(dev, tmp: str, start_path: str, dataset_cls,
+                kernel_fns) -> dict:
+    """Phase 7. Returns the kernels' launch counts on the sweep."""
+    import csv
+
+    import advmix_tpu_torch.engine.trainer as trainer_mod
+    from advmix_tpu_torch.tools import test_corruption as sweep_tool
+
+    root = os.path.join(tmp, "sweep")
+    counts = write_coco(root, "val2017", [int(c) for c in np.random.RandomState(
+        SEED + 20).randint(2, 9, 20)], np.random.RandomState(SEED + 21))
+    out_root = os.path.join(tmp, "sweep_out")
+    argv = ["--cfg", CFG, "--on_the_fly", "--device", str(dev),
+            "--modelDir", out_root,
+            "--logDir", os.path.join(tmp, "sweep_log"), "DATASET.ROOT", root,
+            "TEST.MODEL_FILE", start_path]
+
+    def build(cfg, is_train, image_set=None):
+        return dataset_cls(cfg, is_train, image_set)
+
+    pass_s, corrupt_ev = [], []
+    real_validate, real_corrupt = sweep_tool.validate, trainer_mod.corrupt
+
+    def timed_validate(*a, **k):
+        t0 = time.perf_counter()
+        res = real_validate(*a, **k)
+        torch.cuda.synchronize()
+        pass_s.append(time.perf_counter() - t0)
+        return res
+
+    def timed_corrupt(*a, **k):
+        # events on the stream, read after the sweep: no host sync added
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = real_corrupt(*a, **k)
+        ev[1].record()
+        corrupt_ev.append(ev)
+        return res
+
+    sweep_tool.validate, trainer_mod.corrupt = timed_validate, timed_corrupt
+    for fn in kernel_fns:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        result = sweep_tool.main(argv, build_dataset=build)
+    finally:
+        sweep_tool.validate, trainer_mod.corrupt = real_validate, real_corrupt
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernel_fns}
+    torch.cuda.synchronize()
+    corrupt_s = [a.elapsed_time(b) / 1e3 for a, b in corrupt_ev]
+    n_pass = 1 + 15 * 5
+    n_batches = -(-sum(counts) // 128)
+    log(f"[sweep] tools/test_corruption.main --on_the_fly: {n_pass} passes "
+        f"over {sum(counts)} people in {len(counts)} images ({n_batches} "
+        f"batch of 128) in {wall:.2f} s, launches {launches}")
+    if len(result["runs"]) != n_pass or len(pass_s) != n_pass:
+        raise AssertionError(f"the sweep ran {len(result['runs'])} passes")
+    with open(os.path.join(result["output_dir"], "robust_C.val")) as f:
+        lines = [ln for ln in f.read().splitlines() if ln.strip()]
+    if len(lines) != n_pass:
+        raise AssertionError(f"robust_C.val has {len(lines)} lines")
+    with open(result["csv"]) as f:
+        row = next(csv.DictReader(f))
+    for k in ("clean_mAP", "mean_corrupted_mAP", "rAP"):
+        if not np.isfinite(float(row[k])):
+            raise AssertionError(f"CSV {k} = {row[k]} is not finite")
+    if launches["decode_heatmaps"] != n_pass * n_batches:
+        raise AssertionError(f"decode launched {launches['decode_heatmaps']}"
+                             f" times, expected {n_pass * n_batches}")
+    if launches["oks_matrix_batched"] != n_pass:
+        raise AssertionError(f"batched OKS launched "
+                             f"{launches['oks_matrix_batched']} times, "
+                             f"expected {n_pass}")
+    aps = [r[3] for r in result["runs"]]
+    if not all(np.isfinite(a) for a in aps):
+        raise AssertionError(f"a pass scored {aps}")
+    log(f"[sweep] robust_C.val {len(lines)} lines; CSV clean_mAP "
+        f"{row['clean_mAP']} mean_corrupted_mAP {row['mean_corrupted_mAP']} "
+        f"rAP {row['rAP']} (random weights)")
+    steady = pass_s[1:]
+    log(f"[sweep] s/pass: first (clean, cuDNN autotuning) {pass_s[0]:.3f}, "
+        f"the other 75 mean {mean(steady):.3f} (min {min(steady):.3f}, max "
+        f"{max(steady):.3f}); corruption {sum(corrupt_s):.3f} s in all = "
+        f"{100 * sum(corrupt_s) / sum(steady):.1f}% of the corrupted passes "
+        f"({mean(corrupt_s) * 1e3:.1f} ms per pass: CUDA events around "
+        "each corrupt call on the stream, no sync added to the pass)")
+    return launches
+
+
+def random_corruption_train_phase(dev, tmp: str, start_path: str,
+                                  dataset_cls, kernel_fns) -> dict:
+    """Phase 8. Returns the kernels' launch counts on this training run."""
+    from advmix_tpu_torch.tools import train as train_tool
+
+    root = os.path.join(tmp, "sweep")  # phase 7 wrote its val set there
+    write_coco(root, "train2017", [4] * 16, np.random.RandomState(SEED + 22))
+    argv = ["--cfg", CFG, "--random_corruption", "--device", str(dev),
+            "--load_from_D", start_path,
+            "--modelDir", os.path.join(tmp, "rc_out"), "--logDir",
+            os.path.join(tmp, "rc_log"), "DATASET.ROOT", root,
+            "TRAIN.END_EPOCH", "1", "PRINT_FREQ", "1"]
+
+    def build(cfg, is_train, image_set=None):
+        return dataset_cls(cfg, is_train, image_set)
+
+    for fn in kernel_fns:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = train_tool.main(argv, build_dataset=build)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernel_fns}
+    history = result["history"]
+    if len(history) != 1 or len(history[0]) != 2:
+        raise AssertionError(f"trained {[len(h) for h in history]} "
+                             "iterations, expected one epoch of 2")
+    for i, m in enumerate(history[0]):
+        if not (np.isfinite(m["loss"]) and m["loss"] > 0):
+            raise AssertionError(f"iteration {i}: loss {m['loss']}")
+    start = torch.load(start_path, map_location="cpu")
+    sd = {k: v.cpu() for k, v in result["state"].model.state_dict().items()}
+    floats = [k for k, v in sd.items() if v.is_floating_point()]
+    changed = sum(not torch.equal(sd[k], start[k]) for k in floats)
+    if changed < 0.9 * len(floats):
+        raise AssertionError(f"only {changed} of {len(floats)} tensors moved")
+    losses = ", ".join(f"{m['loss']:.6f}" for m in history[0])
+    log(f"[train] tools/train.main --random_corruption, 1 epoch of 2 "
+        f"iterations of batch 32 + validate(): {wall:.2f} s; losses "
+        f"{losses}; {changed} of {len(floats)} tensors of the model changed; "
+        f"launches {launches}")
+    del result
+    torch.cuda.empty_cache()
+    return launches
+
+
 def synthetic_coco_class():
     """`COCODataset` with seeded random pixels for its records' images."""
     from advmix_tpu_torch.data import COCODataset
@@ -1122,12 +1422,26 @@ def main() -> None:
         dev, tmp, start_path, SyntheticCropCOCO,
         (decode_heatmaps, oks_matrix_batched, oks_matrix))
 
+    # ---- 6. corruptions -----------------------------------------------------
+    corruption_phase(dev)
+
+    # ---- 7. the robustness sweep through its entry point ------------------
+    kernel_fns = (decode_heatmaps, oks_matrix_batched, oks_matrix)
+    sweep_launches = sweep_phase(dev, tmp, start_path, SyntheticCropCOCO,
+                                 kernel_fns)
+
+    # ---- 8. --random_corruption training ----------------------------------
+    rc_launches = random_corruption_train_phase(dev, tmp, start_path,
+                                                SyntheticCropCOCO, kernel_fns)
+
     kernels = []
     for k in ("decode_heatmaps", "oks_matrix_batched", "oks_matrix"):
         r = dict(report[k])
-        # the eval path's count; the training path's own beside it
+        # the eval path's count; each later path's own beside it
         r["launches"] = launches[k]
         r["launches_train"] = train_launches[k]
+        r["launches_sweep"] = sweep_launches[k]
+        r["launches_train_random_corruption"] = rc_launches[k]
         kernels.append(r)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

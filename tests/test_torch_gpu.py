@@ -12,7 +12,9 @@ the kernels' tile, vector and alignment edges.
 
 Tolerances: decode is bit-equal (the same comparisons, the same f32 adds
 of 0.25). OKS: rtol 1e-5, atol 1e-6, since CUDA's `expf` and torch's `exp`
-may differ in the last bit. Keep lists: equal.
+may differ in the last bit. Keep lists: equal. Corruptions (plain PyTorch on
+the card, no hand kernel): the card and the CPU at most 1 uint8 level apart
+on at most 0.5% of values.
 """
 
 import numpy as np
@@ -29,7 +31,7 @@ from advmix_tpu_torch.ops.cuda.oks_kernel import (oks_matrix,
 from advmix_tpu_torch.ops.cuda.timing import (decode_by, oks_baseline,
                                               oks_by_micro)
 from advmix_tpu_torch.ops.nms import oks_nms_np
-from chip_smoke import decode_inputs, flat_kpts, oks_inputs
+from chip_smoke import card_vs_cpu, decode_inputs, flat_kpts, oks_inputs
 
 
 @pytest.fixture
@@ -275,3 +277,52 @@ def test_cuda_f32_advmix_step_matches_cpu(cuda):
         moved = float((a - p0).abs().max())
         assert moved > 0
         assert float((a - b).abs().max()) <= 2e-2 * moved
+
+
+# one severity per corruption form that draws nothing at random: the 8
+# key-free types and the exact-render forms (spatter 4 is the mud arm, 2
+# the water arm, which needs cv2)
+KEY_FREE = ["defocus_blur", "zoom_blur", "brightness", "contrast", "pixelate",
+            "jpeg_compression", "gaussian_blur", "saturate"]
+CORRUPTION_CASES = ([(n, 3, False) for n in KEY_FREE]
+                    + [(n, 3, True) for n in ("glass_blur", "motion_blur",
+                                              "snow", "elastic_transform")]
+                    + [("spatter", 4, True), ("spatter", 2, True)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,severity,exact", CORRUPTION_CASES)
+def test_cuda_corruption_matches_cpu(cuda, name, severity, exact):
+    """The card against the CPU on 4 seeded 256x192 crops, with cuDNN TF32
+    allowed around the call (the module turns it off for its own convs),
+    in uint8 after clip and truncation: at most 1 level apart on at most
+    0.5% of values."""
+    if name == "spatter" and severity <= 3:
+        pytest.importorskip("cv2", reason="the exact water arm needs cv2")
+    x = torch.from_numpy(np.random.RandomState(10).randint(
+        0, 256, (4, 256, 192, 3)).astype(np.float32))
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=True):
+        level, share = card_vs_cpu(x, cuda, name, severity, exact)
+    assert level <= 1 and share <= 0.005, (level, share)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", KEY_FREE + [
+    "gaussian_noise", "shot_noise", "impulse_noise", "speckle_noise",
+    "glass_blur", "motion_blur", "snow", "frost", "fog", "elastic_transform",
+    "spatter"])
+def test_cuda_traced_corruption_in_range(cuda, name):
+    """The generator-driven form on the card: shape, finite, [0, 255], and
+    two seeds differ where the form draws at random."""
+    from advmix_tpu_torch.ops.corruptions import DRAWS, corrupt
+
+    x = torch.from_numpy(np.random.RandomState(11).randint(
+        0, 256, (4, 256, 192, 3)).astype(np.float32)).to(cuda)
+    a, b = (corrupt(x, name, 3, torch.Generator(cuda).manual_seed(s))
+            for s in (1, 2))
+    for out in (a, b):
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        assert float(out.min()) >= 0 and float(out.max()) <= 255
+    assert torch.equal(a, b) != (name in DRAWS)

@@ -91,6 +91,39 @@ def test_training_modules_name_their_jax_counterpart(name):
                                     "from advmix_tpu.", "import advmix_tpu "))
 
 
+SWEEP_MODULES = [("ops.corruptions", "advmix_tpu/ops/corruptions.py"),
+                 ("tools.test_corruption", "tools/test_corruption.py"),
+                 ("tools.make_datasets", "tools/make_datasets.py")]
+
+
+@pytest.mark.parametrize("name,counterpart", SWEEP_MODULES)
+def test_sweep_modules_name_their_jax_counterpart(name, counterpart):
+    """Each module of the corruption slice documents which JAX module it
+    ports, and imports nothing of JAX, cv2 or PIL at module level."""
+    path = os.path.join(ROOT, "advmix_tpu_torch", *name.split(".")) + ".py"
+    src = open(path).read()
+    assert counterpart in src.split('"""')[1]
+    for line in src.splitlines():
+        assert not line.startswith(("import jax", "from jax", "import cv2",
+                                    "from PIL", "import PIL",
+                                    "from advmix_tpu ", "from advmix_tpu.",
+                                    "import advmix_tpu "))
+
+
+@pytest.mark.parametrize("tool,args", [
+    ("test_corruption", ["--cfg", W32, "--on_the_fly"]),
+    ("make_datasets", ["--dataset_root", "."]),
+])
+def test_sweep_entry_points_without_card_raise(tmp_path, tool, args):
+    proc = subprocess.run(
+        [sys.executable, "-m", f"advmix_tpu_torch.tools.{tool}", *args],
+        cwd=str(tmp_path), env=NO_CARD, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr
+    assert not os.listdir(tmp_path)
+
+
 def test_chip_smoke_without_card_fails(tmp_path):
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
                           cwd=str(tmp_path), env=NO_CARD, capture_output=True,

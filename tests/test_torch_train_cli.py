@@ -103,7 +103,8 @@ def test_train_checkpoints_resumes_and_exports(tmp_path, monkeypatch, mode):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--random_corruption"], "--random_corruption needs ops/corruptions.py"),
+    (["--stylize_image", "--sp_style", "0.5"],
+     "--stylize_image / --sp_style need"),
     (["--stylize_image"], "--stylize_image / --sp_style need"),
     (["--sp_style", "0.5"], "--stylize_image / --sp_style need"),
     (["TRAIN.INT8_TEACHER", "True"], "TRAIN.INT8_TEACHER needs ops/quant.py"),
@@ -121,9 +122,9 @@ def test_later_slice_options_stop_with_their_message(tmp_path, monkeypatch,
 
 
 def test_later_slice_flag_exits_nonzero(tmp_path):
-    log = _run("train", tmp_path, "--device", "cpu", "--random_corruption",
+    log = _run("train", tmp_path, "--device", "cpu", "--stylize_image",
                ok=False)
-    assert "not ported yet: --random_corruption" in log
+    assert "not ported yet: --stylize_image" in log
 
 
 def test_train_without_card_raises(tmp_path):
