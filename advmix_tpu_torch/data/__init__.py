@@ -1,5 +1,8 @@
-from .datasets import COCODataset, SyntheticPoseDataset, build_dataset
+from .datasets import (COCODataset, ConcatDataset, MPIIDataset,
+                       SyntheticPoseDataset, build_dataset,
+                       build_stylized_dataset)
 from .loader import CachedLoader, Loader
 
-__all__ = ["COCODataset", "SyntheticPoseDataset", "build_dataset",
+__all__ = ["COCODataset", "ConcatDataset", "MPIIDataset",
+           "SyntheticPoseDataset", "build_dataset", "build_stylized_dataset",
            "CachedLoader", "Loader"]

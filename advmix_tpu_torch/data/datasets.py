@@ -1,7 +1,9 @@
 """Datasets: host-side records and the per-sample crop, eval and train.
 
 Port of `advmix_tpu/data/datasets.py` for the top-down datasets (reference
-`lib/dataset/JointsDataset.py`, `lib/dataset/coco.py:70-83`). The host
+`lib/dataset/JointsDataset.py`, `lib/dataset/coco.py:70-83`,
+`lib/dataset/mpii.py:36-41`), and of its `ConcatDataset` for
+--stylize_image (`tools/train.py:145-163`). The host
 decodes the image, draws the augmentation parameters of a training sample
 (half-body, scale, rotation, flip, in that order from one numpy stream) and
 either warps a fixed-size uint8 crop with cv2 (`get_sample`) or hands on
@@ -10,7 +12,9 @@ the image padded into a static bucket with its 2x3 crop matrix
 (`ops/transforms.warp_affine`). Everything after (normalization, the AdvMix
 views, targets) runs on the device. `cv2` is imported where a JPEG is
 decoded or a crop warped, so importing the package does not need it, and
-`get_raw_sample` on an image that is already decoded never does.
+`get_raw_sample` on an image that is already decoded never does. With
+DATASET.DATA_FORMAT `zip` the images are members of `<set>.zip`
+(`utils/zipreader.py`).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ def _compose_mirror(trans: np.ndarray, width: int) -> np.ndarray:
 class BaseJointsDataset:
     num_joints: int = 0
     flip_pairs: List[List[int]] = []
+    parent_ids = None
     upper_body_ids = ()
     lower_body_ids = ()
 
@@ -110,7 +115,12 @@ class BaseJointsDataset:
         import cv2
 
         flags = cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION
-        img = cv2.imread(path, flags)
+        if self.cfg.DATASET.DATA_FORMAT == "zip":
+            from ..utils import zipreader
+
+            img = zipreader.imread(path, flags)
+        else:
+            img = cv2.imread(path, flags)
         if img is None:
             raise ValueError(f"Fail to read {path}")
         if self.color_rgb:
@@ -236,9 +246,10 @@ class COCODataset(BaseJointsDataset):
                   else "image_info")
         self.ann_file = os.path.join(
             root, "annotations", f"{prefix}_{self.image_set}.json")
-        if cfg.DATASET.DATA_FORMAT == "zip":
-            raise NotImplementedError("zip image archives are not ported yet")
-        image_dir = os.path.join(root, self.image_set)
+        # zip archives: <set>.zip@<member> paths (lib/dataset/coco.py:235)
+        image_dir = os.path.join(
+            root, self.image_set + (".zip@" if cfg.DATASET.DATA_FORMAT == "zip"
+                                    else ""))
         # COCO2014 sets carry a COCO_<set>_ filename prefix (coco.py:230-231)
         fname_prefix = (f"COCO_{self.image_set}_"
                         if "2014" in self.image_set else "")
@@ -266,6 +277,36 @@ class COCODataset(BaseJointsDataset):
 
         return evaluate_coco_keypoints(cfg, self, preds, output_dir,
                                        all_boxes, img_path, device=device)
+
+
+class MPIIDataset(BaseJointsDataset):
+    num_joints = 16
+    flip_pairs = [[0, 5], [1, 4], [2, 3], [10, 15], [11, 14], [12, 13]]
+    parent_ids = [1, 2, 6, 6, 3, 4, 6, 6, 7, 8, 11, 12, 7, 7, 13, 14]
+    upper_body_ids = (7, 8, 9, 10, 11, 12, 13, 14, 15)
+    lower_body_ids = (0, 1, 2, 3, 4, 5, 6)
+
+    def __init__(self, cfg, is_train: bool, image_set: Optional[str] = None):
+        super().__init__(cfg, is_train)
+        self.image_set = image_set or (
+            cfg.DATASET.TRAIN_SET if is_train else cfg.DATASET.TEST_SET)
+        corruption = (cfg.TEST.CORRUPTION_TYPE
+                      if (cfg.TEST.TEST_ROBUST and not is_train) else "")
+        self.records = records_lib.load_mpii_records(
+            cfg.DATASET.ROOT, self.image_set, self.num_joints,
+            corruption_type=corruption, severity=cfg.TEST.SEVERITY,
+            root_c=cfg.DATASET.ROOT_C,
+            # zip archives: images.zip@<member> (lib/dataset/mpii.py:92)
+            image_dir_name=("images.zip@" if cfg.DATASET.DATA_FORMAT == "zip"
+                            else "images"))
+        if is_train and cfg.DATASET.SELECT_DATA:
+            self.records = records_lib.select_data(self.records)
+
+    def evaluate(self, cfg, preds, output_dir, all_boxes=None, img_path=None,
+                 **kwargs):
+        from ..evaluation.mpii_eval import evaluate_mpii_pckh
+
+        return evaluate_mpii_pckh(cfg, self, preds, output_dir)
 
 
 class SyntheticPoseDataset(BaseJointsDataset):
@@ -343,7 +384,65 @@ def build_dataset(cfg, is_train: bool = False,
     name = cfg.DATASET.DATASET
     if name == "coco":
         return COCODataset(cfg, is_train, image_set)
+    if name == "mpii":
+        return MPIIDataset(cfg, is_train, image_set)
     if name == "synthetic":
         return SyntheticPoseDataset(
             cfg, is_train, length=int(cfg.DATASET.SYNTH_LENGTH))
-    raise NotImplementedError(f"dataset '{name}' is not ported yet")
+    if name in ("bottomup_coco", "ochuman"):
+        raise NotImplementedError(f"dataset '{name}' is not ported yet: the "
+                                  "bottom-up HigherHRNet slice")
+    raise KeyError(f"unknown dataset '{name}'")
+
+
+class ConcatDataset:
+    """The concatenation of datasets of one sample schema: the reference's
+    --stylize_image training set (`tools/train.py:145-163`), the normal
+    dataset and its stylized copy. `style_tags` gives each child a 0/1
+    float that its samples carry as `is_style` (the reference tags
+    stylized records with dataset='style', `advaug.py:182,192`)."""
+
+    def __init__(self, datasets, style_tags):
+        assert datasets and len(style_tags) == len(datasets)
+        self.datasets = list(datasets)
+        self.style_tags = list(style_tags)
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    def _owner(self, idx: int):
+        """(child, index in the child, style tag) of sample `idx`."""
+        if not 0 <= idx < len(self):
+            raise IndexError(idx)
+        k = int(np.searchsorted(self._offsets, idx, side="right")) - 1
+        return self.datasets[k], idx - int(self._offsets[k]), \
+            self.style_tags[k]
+
+    def get_sample(self, idx: int, rng: np.random.RandomState) -> dict:
+        d, i, tag = self._owner(idx)
+        sample = d.get_sample(i, rng)
+        sample["is_style"] = np.float32(tag)
+        return sample
+
+    def get_raw_sample(self, idx: int, rng: np.random.RandomState,
+                       bucket_hw=(512, 768)) -> dict:
+        d, i, tag = self._owner(idx)
+        sample = d.get_raw_sample(i, rng, bucket_hw)
+        sample["is_style"] = np.float32(tag)
+        return sample
+
+    def evaluate(self, *args, **kwargs):
+        return self.datasets[0].evaluate(*args, **kwargs)
+
+
+def build_stylized_dataset(cfg, is_train: bool, build=build_dataset):
+    """`build(cfg, is_train)` with DATASET.ROOT moved to the stylized copy,
+    `<dirname(ROOT)>/stylize_image_<DATASET>`."""
+    styl_cfg = cfg.clone()
+    styl_cfg.defrost()
+    root = cfg.DATASET.ROOT.rstrip("/")
+    styl_cfg.DATASET.ROOT = os.path.join(
+        os.path.dirname(root), f"stylize_image_{cfg.DATASET.DATASET}")
+    styl_cfg.freeze()
+    return build(styl_cfg, is_train)

@@ -1,10 +1,11 @@
-"""COCO annotation -> record loaders (host side, numpy).
+"""COCO and MPII annotation -> record loaders (host side, numpy).
 
-Port of the COCO half of `advmix_tpu/data/records.py`, producing the same
-fixed-schema records as the reference's `_get_db`
-(`lib/dataset/coco.py:118-293`: GT keypoint annotations, or detected
-person boxes filtered by IMAGE_THRE; box -> center/scale with the
-aspect-ratio fixup and the 1.25 padding).
+Port of `advmix_tpu/data/records.py`, producing the same fixed-schema
+records as the reference's `_get_db` (`lib/dataset/coco.py:118-293`: GT
+keypoint annotations, or detected person boxes filtered by IMAGE_THRE; box
+-> center/scale with the aspect-ratio fixup and the 1.25 padding;
+`lib/dataset/mpii.py:50-112`: the annot json's center and scale with the
++15*s shift, the 1.25 padding and 1-based -> 0-based coordinates).
 
 Record schema: dict(image, center(2,), scale(2,), joints_3d(J,3),
 joints_3d_vis(J,3), score, filename, imgnum, instance_index).
@@ -170,6 +171,63 @@ def load_coco_det_records(
                 instance_index=str(img_id),
             )
         )
+    return records
+
+
+def load_mpii_records(
+    root: str,
+    image_set: str,
+    num_joints: int = 16,
+    corruption_type: str = "",
+    severity: int = 0,
+    root_c: str = "",
+    image_dir_name: str = "images",
+) -> List[dict]:
+    """MPII records from annot/<set>.json (`lib/dataset/mpii.py:50-112`).
+    `image_dir_name` is `images.zip@` for a zip archive."""
+    ann_file = os.path.join(root, "annot", image_set + ".json")
+    with open(ann_file) as f:
+        anno = json.load(f)
+
+    records = []
+    for a in anno:
+        image_name = a["image"]
+        if corruption_type and corruption_type != "clean":
+            path = os.path.join(
+                root_c, _corruption_subpath(image_name, corruption_type,
+                                            severity))
+        else:
+            path = os.path.join(root, image_dir_name, image_name)
+
+        c = np.array(a["center"], dtype=np.float64)
+        s = np.array([a["scale"], a["scale"]], dtype=np.float64)
+        if c[0] != -1:
+            c[1] = c[1] + 15 * s[1]
+            s = s * 1.25
+        c = c - 1  # matlab 1-based -> 0-based
+
+        joints = np.zeros((num_joints, 3), np.float64)
+        vis = np.zeros((num_joints, 3), np.float64)
+        if image_set != "test":
+            j = np.array(a["joints"], dtype=np.float64)
+            j[:, 0:2] = j[:, 0:2] - 1
+            jv = np.array(a["joints_vis"], dtype=np.float64)
+            assert len(j) == num_joints
+            joints[:, 0:2] = j[:, 0:2]
+            vis[:, 0] = jv
+            vis[:, 1] = jv
+
+        records.append(dict(
+            image=path,
+            center=c.astype(np.float32),
+            scale=s.astype(np.float32),
+            joints_3d=joints,
+            joints_3d_vis=vis,
+            score=1.0,
+            filename="",
+            imgnum=0,
+            instance_index="",
+        ))
     return records
 
 

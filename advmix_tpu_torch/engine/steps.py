@@ -15,8 +15,14 @@ axis have no counterpart on one card and are left out.
 the one-pixel shift, the per-sample loss and PCK sums with the padded-tail
 `valid` mask, decode through the CUDA decode kernel
 (`ops/cuda/decode_kernel.py`, the counterpart of the Pallas kernel the JAX
-step uses on a TPU) and the device inverse affine. The JAX step's
-`psum`s over replicas become plain sums here.
+step uses on a TPU) or, under TEST.SOFT_ARGMAX, the soft-argmax
+(`ops/heatmap.py`; the decode kernel does not run), and the device inverse
+affine. The JAX step's `psum`s over replicas become plain sums here.
+
+With `debug=True` each step also returns `heatmap_debug.debug_outputs` of
+its heatmaps (and the AdvMix step the mix), device tensors that the trainer
+reads back only on the batches it dumps (`lib/core/function.py:92-95,
+194-197, 301-316`).
 
 Boundary of the eval step as in the JAX step: NHWC (B, H, W, 3) normalized
 images in, coords (B, J, 2) and maxvals (B, J, 1) out. The train steps take
@@ -32,11 +38,13 @@ from typing import Sequence
 import torch
 
 from ..ops.cuda.decode_kernel import decode_heatmaps
-from ..ops.heatmap import pck_from_sums, pck_sums
+from ..ops.heatmap import get_final_preds_softargmax, pck_from_sums, \
+    pck_sums
 from ..ops.losses import joints_loss, joints_loss_per_sample, \
     joints_ohkm_loss, joints_ohkm_loss_per_sample
 from ..ops.transforms import flip_back, shift_heatmap_right, \
     transform_preds_batch
+from .heatmap_debug import debug_outputs
 
 
 def _criterion_kind(cfg) -> str:
@@ -77,11 +85,11 @@ def _pck(out, target):
 # Standard training step (lib/core/function.py:30-95)
 # ---------------------------------------------------------------------------
 
-def make_train_step(state, cfg):
+def make_train_step(state, cfg, debug: bool = False):
     """Returns `step(batch) -> metrics` that trains `state.model` on
     batch["image"] (B, 3, H, W) against batch["target"] and
     batch["target_weight"]. Metrics are device tensors: loss, acc,
-    acc_cnt."""
+    acc_cnt. With `debug`, `step(batch) -> (metrics, debug_outputs)`."""
     loss_of = _loss_fn_for(cfg)
     model, opt = state.model, state.optimizer
 
@@ -94,7 +102,10 @@ def make_train_step(state, cfg):
         opt.step()
         state.step += 1
         acc, cnt = _pck(out, batch["target"])
-        return {"loss": loss.detach(), "acc": acc, "acc_cnt": cnt}
+        metrics = {"loss": loss.detach(), "acc": acc, "acc_cnt": cnt}
+        if debug:
+            return metrics, debug_outputs(out)
+        return metrics
 
     return step
 
@@ -118,12 +129,14 @@ def mix_views(logits: torch.Tensor, views: torch.Tensor,
 
 def make_advmix_step(state, cfg, alpha: float = 0.1,
                      adv_loss_weight: float = 1.0, num_views: int = 3,
-                     _mutation=None):
+                     debug: bool = False, _mutation=None):
     """Returns `step(batch) -> metrics` for one min-max iteration on
     batch["views"] (B, 3K, H, W), channel-concat of K normalized views with
     the clean one first. Metrics are device tensors: loss_d, loss_g, acc,
     acc_cnt (PCK of the G step's D output, `function.py:167-171`).
-    `step.last_mix_weights` keeps the last iteration's mixing weights.
+    `step.last_mix_weights` keeps the last iteration's mixing weights. With
+    `debug`, `step(batch) -> (metrics, debug_outputs)` of the G step's D
+    output, with the detached mix under "mixed".
 
     `_mutation` is fault injection for the tests only: it plants the two
     faults of sequencing that this formulation could hide, so that the
@@ -194,8 +207,13 @@ def make_advmix_step(state, cfg, alpha: float = 0.1,
 
         state.step += 1
         acc, cnt = _pck(out_g, target)
-        return {"loss_d": loss_d.detach(), "loss_g": loss_g.detach(),
-                "acc": acc, "acc_cnt": cnt}
+        metrics = {"loss_d": loss_d.detach(), "loss_g": loss_g.detach(),
+                   "acc": acc, "acc_cnt": cnt}
+        if debug:
+            dbg = debug_outputs(out_g)
+            dbg["mixed"] = mixed.detach()  # the adversarial mix, for dumps
+            return metrics, dbg
+        return metrics
 
     step.last_mix_weights = None
     return step
@@ -205,18 +223,18 @@ def make_advmix_step(state, cfg, alpha: float = 0.1,
 # Eval step (lib/core/function.py:200-318)
 # ---------------------------------------------------------------------------
 
-def make_eval_step(model, cfg, flip_pairs: Sequence):
+def make_eval_step(model, cfg, flip_pairs: Sequence, debug: bool = False):
     """Returns `step(batch) -> (preds, maxvals, metrics)` for an eval-mode
     model. `batch` holds device tensors: image (B, H, W, 3), target
     (B, J, Hh, Hw), target_weight (B, J), center (B, 2), scale (B, 2) and
     optionally valid (B,). `step.forward(image)` gives the flip-averaged
-    f32 NCHW heatmaps that `step` decodes."""
-    if cfg.TEST.SOFT_ARGMAX:
-        raise NotImplementedError("TEST.SOFT_ARGMAX is not ported yet")
+    f32 NCHW heatmaps that `step` decodes. With `debug` the step returns
+    `debug_outputs` of those heatmaps as a fourth item."""
     loss_per_sample = _per_sample_loss_fn_for(cfg)
     flip_test = cfg.TEST.FLIP_TEST
     shift = cfg.TEST.SHIFT_HEATMAP
     post = cfg.TEST.POST_PROCESS
+    soft = cfg.TEST.SOFT_ARGMAX  # the soft-argmax decode (:129-162)
     pairs = tuple(tuple(p) for p in flip_pairs)
 
     @torch.no_grad()
@@ -243,12 +261,18 @@ def make_eval_step(model, cfg, flip_pairs: Sequence):
         loss = (ps * v).sum() / v.sum().clamp(min=1.0)
         hit_j, val_j = pck_sums(out, batch["target"], sample_mask=v)
         _, acc, cnt = pck_from_sums(hit_j, val_j)
-        coords, maxvals = decode_heatmaps(out, post_process=post)
-        h, w = out.shape[2], out.shape[3]
-        preds = transform_preds_batch(coords, batch["center"],
-                                      batch["scale"], (w, h))
+        if soft:
+            preds, maxvals = get_final_preds_softargmax(
+                out, batch["center"], batch["scale"], post_process=post)
+        else:
+            coords, maxvals = decode_heatmaps(out, post_process=post)
+            h, w = out.shape[2], out.shape[3]
+            preds = transform_preds_batch(coords, batch["center"],
+                                          batch["scale"], (w, h))
         metrics = {"loss": loss, "acc": acc, "acc_cnt": cnt,
                    "pck_hit_j": hit_j, "pck_valid_j": val_j}
+        if debug:
+            return preds, maxvals, metrics, debug_outputs(out)
         return preds, maxvals, metrics
 
     step.forward = forward

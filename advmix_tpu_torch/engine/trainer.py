@@ -6,7 +6,11 @@ feeds uint8 crops (or, with DATASET.DEVICE_WARP, padded source images and
 crop matrices), the device warps, normalizes, synthesizes the three AdvMix
 views and builds the Gaussian targets, and each iteration is one call of a
 step of `engine/steps.py`. Validation: the eval step decodes, and the host
-gathers the predictions in dataset order for `dataset.evaluate`.
+gathers the predictions in dataset order for `dataset.evaluate`. With
+DEBUG.DEBUG (steps built with `debug=True`) both loops dump joint-overlay
+and heatmap grids (`utils/vis.py`) every PRINT_FREQ batches into
+`output_dir_of(cfg)`, and read the debug outputs back only on those batches
+(`lib/core/function.py:92-95, 194-197, 301-316`).
 """
 
 from __future__ import annotations
@@ -148,11 +152,77 @@ def make_eval_preprocessor(cfg, device: torch.device,
     return prep
 
 
+def _host_inputs(host_batch: dict, required) -> dict:
+    """The preprocessor's inputs from a loader batch. A batch without
+    `is_style` (a dataset that is not a stylized ConcatDataset) gets zeros,
+    with one warning: the --sp_style exemption is then inactive."""
+    host = {}
+    for k in required:
+        if k in host_batch:
+            host[k] = host_batch[k]
+        elif k == "is_style":
+            if not getattr(_host_inputs, "_warned_is_style", False):
+                _host_inputs._warned_is_style = True
+                logger.warning(
+                    "batch lacks 'is_style'; zero-filling: the --sp_style "
+                    "AutoAugment/GridMask exemption is inactive for these "
+                    "samples")
+            host[k] = np.zeros(len(host_batch["image"]), np.float32)
+        else:
+            raise KeyError(
+                f"loader batch lacks '{k}' required by the preprocessor "
+                "(device_warp needs Loader(raw_mode=True))")
+    return host
+
+
+def _nhwc(x: torch.Tensor) -> np.ndarray:
+    """An NCHW device tensor as an f32 NHWC host array."""
+    return x.detach().to(torch.float32).permute(0, 2, 3, 1).cpu().numpy()
+
+
+def _save_dumps(cfg, host_batch, image_norm, target, debug_out, prefix):
+    from ..utils.vis import save_debug_images
+
+    output = _nhwc(debug_out["output"])
+    pred = debug_out["pred_coords"].cpu().numpy()
+    stride = image_norm.shape[1] / output.shape[1]
+    save_debug_images(cfg, image_norm, host_batch["joints"],
+                      host_batch["joints_vis"], target, pred * stride,
+                      output, prefix)
+
+
+def _dump_debug_images(cfg, host_batch, batch, debug_out, out_dir, epoch,
+                       i, advmix):
+    """The training dumps (reference `save_debug_images` call sites,
+    `lib/core/function.py:92-95, 194-197`): `train_<epoch>_<i>_*.jpg` of
+    the input (the clean view under AdvMix), and `..._mixed_*.jpg` of the
+    adversarial mix."""
+    os.makedirs(out_dir, exist_ok=True)
+    prefix = os.path.join(out_dir, f"train_{epoch}_{i}")
+    image = batch["views"][:, :3] if advmix else batch["image"]
+    target = _nhwc(batch["target"])
+    _save_dumps(cfg, host_batch, _nhwc(image), target, debug_out, prefix)
+    if advmix:
+        _save_dumps(cfg, host_batch, _nhwc(debug_out["mixed"]), target,
+                    debug_out, prefix + "_mixed")
+
+
+def _dump_val_debug_images(cfg, host_batch, batch, debug_out, out_dir, i):
+    """The validation dumps (`lib/core/function.py:301-316`):
+    `val_<i>_*.jpg`."""
+    os.makedirs(out_dir, exist_ok=True)
+    _save_dumps(cfg, host_batch, batch["image"].cpu().numpy(),
+                _nhwc(batch["target"]), debug_out,
+                os.path.join(out_dir, f"val_{i}"))
+
+
 def train_epoch(cfg, step_fn, prep_fn, loader, device: torch.device,
                 epoch: int, generator: torch.Generator,
                 advmix: bool = False):
     """One epoch of steps (reference `train` / `train_advmix`). Returns the
-    per-iteration metrics as floats."""
+    per-iteration metrics as floats. A step built with `debug=True`
+    returns (metrics, debug outputs); with DEBUG.DEBUG its outputs are
+    dumped every PRINT_FREQ iterations."""
     batch_time = AverageMeter()
     data_time = AverageMeter()
     losses = AverageMeter()
@@ -161,14 +231,14 @@ def train_epoch(cfg, step_fn, prep_fn, loader, device: torch.device,
     end = time.time()
     for i, host_batch in enumerate(loader):
         data_time.update(time.time() - end)
-        missing = [k for k in prep_fn.required if k not in host_batch]
-        if missing:
-            raise KeyError(
-                f"loader batch lacks {missing} required by the preprocessor "
-                "(device_warp needs Loader(raw_mode=True))")
-        raw = {k: to_device(host_batch[k], device) for k in prep_fn.required}
+        raw = {k: to_device(v, device) for k, v in
+               _host_inputs(host_batch, prep_fn.required).items()}
         batch = prep_fn(raw, generator)
-        metrics = {k: float(v) for k, v in step_fn(batch).items()}
+        result = step_fn(batch)
+        debug_out = None
+        if isinstance(result, tuple):
+            result, debug_out = result
+        metrics = {k: float(v) for k, v in result.items()}
         history.append(metrics)
 
         n = host_batch["_n"]
@@ -177,6 +247,9 @@ def train_epoch(cfg, step_fn, prep_fn, loader, device: torch.device,
         batch_time.update(time.time() - end)
         end = time.time()
         if i % cfg.PRINT_FREQ == 0:
+            if debug_out is not None and cfg.DEBUG.DEBUG:
+                _dump_debug_images(cfg, host_batch, batch, debug_out,
+                                   output_dir_of(cfg), epoch, i, advmix)
             logger.info(
                 f"Epoch: [{epoch}][{i}/{len(loader)}]\t"
                 f"Time {batch_time.val:.3f}s ({batch_time.avg:.3f}s)\t"
@@ -195,9 +268,11 @@ def output_dir_of(cfg) -> str:
 
 
 def validate(cfg, eval_step, prep_fn, dataset, loader, output_dir: str,
-             device: torch.device):
+             device: torch.device, debug_out_dir: str | None = None):
     """One validation pass + `dataset.evaluate`. Returns
-    (name_values, perf)."""
+    (name_values, perf). With `debug_out_dir` and an eval step built with
+    `debug=True`, the DEBUG.* dumps of every PRINT_FREQ-th batch go
+    there."""
     losses = AverageMeter()
     accs = AverageMeter()
     num_samples = len(dataset)
@@ -208,7 +283,7 @@ def validate(cfg, eval_step, prep_fn, dataset, loader, output_dir: str,
     idx = 0
     t_device = 0.0
 
-    for host_batch in loader:
+    for bi, host_batch in enumerate(loader):
         bsz = len(host_batch["image"])
         n = host_batch["_n"]
         raw = {
@@ -226,7 +301,12 @@ def validate(cfg, eval_step, prep_fn, dataset, loader, output_dir: str,
         batch.update(center=raw["center"], scale=raw["scale"],
                      valid=raw["valid"])
         t0 = time.time()
-        preds, maxvals, metrics = eval_step(batch)
+        step_out = eval_step(batch)
+        preds, maxvals, metrics = step_out[:3]
+        if debug_out_dir is not None and len(step_out) == 4 \
+                and bi % cfg.PRINT_FREQ == 0:
+            _dump_val_debug_images(cfg, host_batch, batch, step_out[3],
+                                   debug_out_dir, bi)
         preds = preds.cpu().numpy()
         maxvals = maxvals.cpu().numpy()
         t_device += time.time() - t0

@@ -4,7 +4,8 @@ Port of `advmix_tpu/ops/heatmap.py`. Behavioural references:
 - target generation: `lib/dataset/JointsDataset.py:412-491` (stride-quantized
   joint location with `int(x + 0.5)` truncation, unnormalized Gaussian on a
   (6*sigma+1)^2 window, weight zeroed when the window is out of bounds);
-- decoding: `lib/core/inference.py:22-95`;
+- decoding: `lib/core/inference.py:22-95`, and the soft-argmax variant
+  of TEST.SOFT_ARGMAX, `lib/core/inference.py:97-162`;
 - PCK: `lib/core/evaluate.py:16-99`, with its [h, w]/10 normalization.
 
 Every argmax here takes the FIRST row-major maximum, as `np.argmax` does:
@@ -115,6 +116,41 @@ def get_final_preds(heatmaps: torch.Tensor, center: torch.Tensor,
     coords (`lib/core/inference.py:52-95`). Returns preds (B, J, 2) and
     maxvals (B, J, 1)."""
     coords, maxvals = get_max_preds(heatmaps)
+    if post_process:
+        coords = quarter_offset(heatmaps, coords)
+    h, w = heatmaps.shape[2], heatmaps.shape[3]
+    return transform_preds_batch(coords, center, scale, (w, h)), maxvals
+
+
+def soft_argmax(heatmaps: torch.Tensor, beta: float = 160.0):
+    """Soft-argmax decode of (B, J, H, W) heatmaps (`SoftArgmax2D`,
+    `lib/core/inference.py:97-131`, beta 160 at the call site): the
+    expectation of the coordinate grid under softmax(beta * heatmap), in
+    f32, and the heatmap's value at the rounded, clipped coordinate as the
+    confidence. Returns preds (B, J, 2) as (x, y) and maxvals (B, J, 1)."""
+    b, j, h, w = heatmaps.shape
+    hm = heatmaps.to(torch.float32)
+    probs = torch.softmax(hm.reshape(b, j, h * w) * beta, dim=-1)
+    probs = probs.reshape(b, j, h, w)
+    ys = torch.arange(h, dtype=torch.float32, device=hm.device)
+    xs = torch.arange(w, dtype=torch.float32, device=hm.device)
+    px = (probs * xs[None, None, None, :]).sum(dim=(2, 3))
+    py = (probs * ys[None, None, :, None]).sum(dim=(2, 3))
+    preds = torch.stack([px, py], dim=-1)
+    # torch.round and jnp.round both round half to even
+    ix = torch.round(px).to(torch.int64).clamp(0, w - 1)
+    iy = torch.round(py).to(torch.int64).clamp(0, h - 1)
+    maxvals = torch.gather(hm.reshape(b, j, h * w), 2, (iy * w + ix)[..., None])
+    return preds, maxvals
+
+
+def get_final_preds_softargmax(heatmaps: torch.Tensor, center: torch.Tensor,
+                               scale: torch.Tensor, beta: float = 160.0,
+                               post_process: bool = True):
+    """Soft-argmax (+ quarter offset) then inverse affine to original-image
+    coords (`lib/core/inference.py:129-162`). Returns preds (B, J, 2) and
+    maxvals (B, J, 1)."""
+    coords, maxvals = soft_argmax(heatmaps, beta)
     if post_process:
         coords = quarter_offset(heatmaps, coords)
     h, w = heatmaps.shape[2], heatmaps.shape[3]

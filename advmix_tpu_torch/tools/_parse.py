@@ -34,7 +34,8 @@ def parse_args(argv=None):
 
     # per-image random benchmark corruption of the training crops
     p.add_argument("--random_corruption", default=False, action="store_true")
-    # parsed, not served yet (reject_later_slices)
+    # train on the dataset and its stylized copy; --sp_style exempts the
+    # stylized samples from AutoAugment and GridMask
     p.add_argument("--stylize_image", default=False, action="store_true")
     p.add_argument("--sp_style", type=float, default=0)
 
@@ -50,15 +51,14 @@ def reject_later_slices(args, cfg) -> None:
     """Stop with an error for every option whose feature the port does not
     have yet."""
     later = []
-    if args.stylize_image or args.sp_style:
-        later.append("--stylize_image / --sp_style need the stylized "
-                     "ConcatDataset: the slice of the other top-down "
-                     "families and eval options")
     if cfg.TRAIN.INT8_TEACHER:
         later.append("TRAIN.INT8_TEACHER needs ops/quant.py: the int8 and "
                      "serving slice")
     if cfg.MODEL.NAME == "pose_higher_hrnet":
         later.append("MODEL.NAME pose_higher_hrnet is the bottom-up "
                      "HigherHRNet slice")
+    if cfg.DATASET.DATASET in ("bottomup_coco", "ochuman"):
+        later.append(f"DATASET.DATASET {cfg.DATASET.DATASET} is the "
+                     "bottom-up HigherHRNet slice")
     if later:
         raise SystemExit("not ported yet: " + "; ".join(later))

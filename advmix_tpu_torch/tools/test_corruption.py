@@ -12,16 +12,18 @@ loads it; without one the random init is evaluated, with a warning), build
 the eval step once, evaluate clean + each corruption x severities 1..5,
 append one line per pass to robust_C.val, and write a CSV with the clean AP,
 the per-corruption means, mPC (the mean over the 15 benchmark corruptions
-only) and rAP = mPC / clean. `--all_corruptions` also sweeps the 4 holdout
-types; `--distortions` sweeps a subset.
+only) and rAP = mPC / clean; on an MPII YAML the score is PCKh Mean and the
+CSV's columns are clean_mean, mean_corrupted_mean and rmean.
+`--all_corruptions` also sweeps the 4 holdout types; `--distortions` sweeps
+a subset.
 
 With `--on_the_fly` the crops are corrupted on the device in the
 exact-render form (`ops/corruptions.py`): one dataset of clean crops, whose
 prepared batches are replayed from host memory after the first pass
 (`data/loader.CachedLoader`). Without it each pass reads the pre-rendered
-tree `<ROOT_C>/<corruption>/<severity 0-4>/` (`tools/make_datasets.py`
-writes one). It runs on the CUDA device, and raises without one unless
-`--device cpu` is given.
+tree `<ROOT_C>/<corruption>/<severity 0-4>/` (`data/coco-C` or
+`data/mpii-C`; `tools/make_datasets.py` writes one). It runs on the CUDA
+device, and raises without one unless `--device cpu` is given.
 """
 
 from __future__ import annotations

@@ -1,17 +1,21 @@
 """Training entry point: standard top-down training and AdvMix.
 
     python -m advmix_tpu_torch.tools.train --cfg <yaml> [--advmix \
-        --sample_times 3] [--random_corruption] [--device cpu] \
-        [KEY VALUE ...]
+        --sample_times 3] [--random_corruption] [--stylize_image \
+        [--sp_style 1]] [--device cpu] [KEY VALUE ...]
 
 Port of `tools/train.py` for the top-down branches: the model (and, under
 --advmix, the teacher copy and the UNet generator, :64-69), datasets and
 loaders, the optimizers with their per-epoch MultiStepLR (:184-186,
 272-281), fine-tune loading (--load_from_D / --load_from_G), AUTO_RESUME
 (:238-269), the epoch loop with a validation pass and a checkpoint after
-every epoch (:283-328), and the final export of the weights (:331-337). It
-runs on the CUDA device, and raises without one unless `--device cpu` is
-given.
+every epoch (:283-328), and the final export of the weights (:331-337).
+`--stylize_image` trains on the union of the dataset and its stylized copy
+under `<dirname(ROOT)>/stylize_image_<DATASET>` (:145-163), and with it
+`--sp_style` exempts the stylized samples from AutoAugment and GridMask;
+DEBUG.DEBUG dumps image grids in training and validation (`utils/vis.py`).
+It runs on the CUDA device, and raises without one unless `--device cpu`
+is given.
 """
 
 from __future__ import annotations
@@ -22,8 +26,9 @@ import pprint
 import torch
 
 from ..config import get_default_config, update_config
-from ..data import CachedLoader, Loader
+from ..data import CachedLoader, ConcatDataset, Loader
 from ..data import build_dataset as default_build_dataset
+from ..data import build_stylized_dataset
 from ..engine import state as state_lib
 from ..engine import steps
 from ..engine import trainer as trainer_lib
@@ -46,6 +51,9 @@ def main(argv=None, build_dataset=default_build_dataset):
     cfg = get_default_config()
     update_config(cfg, args)
     reject_later_slices(args, cfg)
+    if args.sp_style and not args.stylize_image:
+        raise SystemExit("--sp_style exempts the stylized samples of "
+                         "--stylize_image: give both")
 
     logger, output_dir, _ = create_logger(cfg, args.cfg, "train")
     logger.info(pprint.pformat(vars(args)))
@@ -73,6 +81,7 @@ def main(argv=None, build_dataset=default_build_dataset):
         logger.info(f"=> loaded D from {args.load_from_D}")
 
     advmix = bool(args.advmix) and args.sample_times > 1
+    debug = bool(cfg.DEBUG.DEBUG)
     if advmix:
         model_g = get_generator(args)
         if args.load_from_G:
@@ -83,14 +92,21 @@ def main(argv=None, build_dataset=default_build_dataset):
                                               dtype)
         step_fn = steps.make_advmix_step(
             state, cfg, alpha=args.alpha,
-            adv_loss_weight=args.adv_loss_weight, num_views=args.sample_times)
+            adv_loss_weight=args.adv_loss_weight, num_views=args.sample_times,
+            debug=debug)
     else:
         state = state_lib.create_pose_state(cfg, model, device, dtype)
-        step_fn = steps.make_train_step(state, cfg)
+        step_fn = steps.make_train_step(state, cfg, debug=debug)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"=> {cfg.MODEL.NAME}: {n_params} parameters")
 
     train_dataset = build_dataset(cfg, True, None)
+    if args.stylize_image:
+        # union with the stylized copy (tools/train.py:145-163); the tags
+        # feed the --sp_style exemption
+        train_dataset = ConcatDataset(
+            [train_dataset, build_stylized_dataset(cfg, True, build_dataset)],
+            style_tags=[0.0, 1.0])
     # MINI_COCO debug mode validates on the train set (tools/train.py:127-134)
     valid_dataset = build_dataset(
         cfg, False, cfg.DATASET.TRAIN_SET if cfg.DATASET.MINI_COCO else None)
@@ -111,12 +127,15 @@ def main(argv=None, build_dataset=default_build_dataset):
 
     prep_train = trainer_lib.make_preprocessor(
         cfg, advmix=advmix, device=device, device_warp=device_warp,
-        random_corruption=args.random_corruption)
+        random_corruption=args.random_corruption,
+        sp_style=bool(args.sp_style and args.stylize_image))
     if args.random_corruption:
         logger.info("=> --random_corruption: a random benchmark corruption "
                     "per training image")
     prep_eval = trainer_lib.make_eval_preprocessor(cfg, device)
-    eval_step = steps.make_eval_step(model, cfg, valid_dataset.flip_pairs)
+    eval_step = steps.make_eval_step(model, cfg, valid_dataset.flip_pairs,
+                                     debug=debug)
+    debug_dir = trainer_lib.output_dir_of(cfg) if debug else None
 
     ckpt = CheckpointManager(output_dir)
     begin_epoch = cfg.TRAIN.BEGIN_EPOCH
@@ -144,7 +163,8 @@ def main(argv=None, build_dataset=default_build_dataset):
         model.eval()
         _, perf = trainer_lib.validate(cfg, eval_step, prep_eval,
                                        valid_dataset, valid_loader,
-                                       output_dir, device)
+                                       output_dir, device,
+                                       debug_out_dir=debug_dir)
         is_best = perf > best_perf
         best_perf = max(perf, best_perf)
         logger.info(f"=> saving checkpoint to {output_dir} (best: {is_best})")

@@ -48,7 +48,29 @@ Phases, each fatal on failure:
    the CSV, and the decode and batched OKS launches of every pass checked;
 8. `tools/train.main --random_corruption` (no AdvMix) for 2 iterations of
    batch 32: losses finite, weights changed;
-9. print a `kernels` JSON line and, last, the device JSON line.
+9. the other COCO families: HRNet-W48 and SimpleBaseline ResNet-50/101/152
+   256x192 at full width and depth (seeded random weights; on the card
+   against the CPU on one image: f64 equal to 1e-9, f32 as far from the
+   f64 forward as the CPU's f32 is), each through validate() at batch 128 in
+   bf16 on phase 4's val set (decode on every batch, both OKS routes), then
+   one batch timed and profiled (busy share, kernels per step, peak memory;
+   device time by kernel family for ResNet-152);
+10. MPII at full width: experiments/mpii/hrnet/w32_256x256_advmix.yaml
+   (HRNet-W32 256x256, 16 joints) through `tools/train.main --advmix
+   --sample_times 3 --stylize_image --sp_style 1` with DEBUG.DEBUG and its
+   four dumps on, on a synthetic MPII set (annot json, gt_valid.mat, JPEGs)
+   and its stylized copy: 3 iterations of batch 32, validate() to PCKh at
+   batch 128, the dump files checked; then the 76-pass MPII-C sweep
+   `tools/test_corruption.main --on_the_fly` over one batch of 128 (decode
+   76 times, OKS never: PCKh has no NMS); the decode kernel at MPII's
+   (128, 16, 64, 64) bit-equal to its plain version on both routes, timed
+   beside its bound;
+11. TEST.SOFT_ARGMAX: the W32 eval through validate() with the decode
+   kernel launched 0 times; soft-argmax on the card against the CPU on the
+   step's heatmaps and on peaked (128, 16, 64, 64) maps (within 1e-3
+   heatmap px), timed beside the decode kernel, and the two eval steps
+   timed in turns;
+12. print a `kernels` JSON line and, last, the device JSON line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -603,10 +625,10 @@ def family_of(kernel_name: str) -> str:
     return "other"
 
 
-def profile_train(both, steps: int = 2) -> dict:
-    """Device busy share and device time by kernel family of `steps`
-    iterations (view synthesis + AdvMix step), from torch.profiler."""
-    wall_us, by_name = profiled(both, steps)
+def profile_by_family(fn, steps: int = 2) -> dict:
+    """Device busy share and device time by kernel family of `steps` calls
+    of fn() (an AdvMix iteration, an eval step), from torch.profiler."""
+    wall_us, by_name = profiled(fn, steps)
     busy_us = sum(t for t, _ in by_name.values())
     fams: dict = {}
     for name, (t, n) in by_name.items():
@@ -877,7 +899,7 @@ def train_phase(dev, tmp: str, start_path: str, dataset_cls, kernel_fns):
     # timings, bf16, after warm-up (cuDNN autotunes in the warm-up)
     for batch_size in (32, 128):
         t = time_advmix_largest_fit(cfg, dev, batch_size, torch.bfloat16,
-                                    iters=10, inspect=profile_train)
+                                    iters=10, inspect=profile_by_family)
         note = ("" if t["batch"] == t["asked"] else
                 f" (batch {t['asked']} does not fit in the card's memory; "
                 "the largest power of two that does)")
@@ -1049,25 +1071,14 @@ def corruption_phase(dev) -> dict:
 # phases 7 and 8: the sweep and --random_corruption training
 # ---------------------------------------------------------------------------
 
-def sweep_phase(dev, tmp: str, start_path: str, dataset_cls,
-                kernel_fns) -> dict:
-    """Phase 7. Returns the kernels' launch counts on the sweep."""
-    import csv
-
+def run_sweep(argv, build, kernel_fns) -> dict:
+    """`tools/test_corruption.main(argv)`, each pass timed by the host clock
+    up to a sync at its end, and each corruption by CUDA events on the
+    stream, read after the sweep (no sync added to a pass). Returns the
+    result, the kernels' launches, the wall seconds, the seconds of every
+    pass and of every corruption."""
     import advmix_tpu_torch.engine.trainer as trainer_mod
     from advmix_tpu_torch.tools import test_corruption as sweep_tool
-
-    root = os.path.join(tmp, "sweep")
-    counts = write_coco(root, "val2017", [int(c) for c in np.random.RandomState(
-        SEED + 20).randint(2, 9, 20)], np.random.RandomState(SEED + 21))
-    out_root = os.path.join(tmp, "sweep_out")
-    argv = ["--cfg", CFG, "--on_the_fly", "--device", str(dev),
-            "--modelDir", out_root,
-            "--logDir", os.path.join(tmp, "sweep_log"), "DATASET.ROOT", root,
-            "TEST.MODEL_FILE", start_path]
-
-    def build(cfg, is_train, image_set=None):
-        return dataset_cls(cfg, is_train, image_set)
 
     pass_s, corrupt_ev = [], []
     real_validate, real_corrupt = sweep_tool.validate, trainer_mod.corrupt
@@ -1080,7 +1091,6 @@ def sweep_phase(dev, tmp: str, start_path: str, dataset_cls,
         return res
 
     def timed_corrupt(*a, **k):
-        # events on the stream, read after the sweep: no host sync added
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         res = real_corrupt(*a, **k)
@@ -1093,24 +1103,63 @@ def sweep_phase(dev, tmp: str, start_path: str, dataset_cls,
         fn.launches = 0
     t0 = time.perf_counter()
     try:
-        result = sweep_tool.main(argv, build_dataset=build)
+        if build is None:
+            result = sweep_tool.main(argv)
+        else:
+            result = sweep_tool.main(argv, build_dataset=build)
     finally:
         sweep_tool.validate, trainer_mod.corrupt = real_validate, real_corrupt
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernel_fns}
     torch.cuda.synchronize()
-    corrupt_s = [a.elapsed_time(b) / 1e3 for a, b in corrupt_ev]
     n_pass = 1 + 15 * 5
-    n_batches = -(-sum(counts) // 128)
-    log(f"[sweep] tools/test_corruption.main --on_the_fly: {n_pass} passes "
-        f"over {sum(counts)} people in {len(counts)} images ({n_batches} "
-        f"batch of 128) in {wall:.2f} s, launches {launches}")
     if len(result["runs"]) != n_pass or len(pass_s) != n_pass:
         raise AssertionError(f"the sweep ran {len(result['runs'])} passes")
     with open(os.path.join(result["output_dir"], "robust_C.val")) as f:
         lines = [ln for ln in f.read().splitlines() if ln.strip()]
     if len(lines) != n_pass:
         raise AssertionError(f"robust_C.val has {len(lines)} lines")
+    perfs = [r[3] for r in result["runs"]]
+    if not all(np.isfinite(a) for a in perfs):
+        raise AssertionError(f"a pass scored {perfs}")
+    return dict(result=result, launches=launches, wall=wall, pass_s=pass_s,
+                corrupt_s=[a.elapsed_time(b) / 1e3 for a, b in corrupt_ev])
+
+
+def log_sweep_times(tag: str, sw: dict) -> None:
+    pass_s, corrupt_s = sw["pass_s"], sw["corrupt_s"]
+    steady = pass_s[1:]
+    log(f"[{tag}] s/pass: first (clean, cuDNN autotuning) {pass_s[0]:.3f}, "
+        f"the other 75 mean {mean(steady):.3f} (min {min(steady):.3f}, max "
+        f"{max(steady):.3f}); corruption {sum(corrupt_s):.3f} s in all = "
+        f"{100 * sum(corrupt_s) / sum(steady):.1f}% of the corrupted passes "
+        f"({mean(corrupt_s) * 1e3:.1f} ms per pass: CUDA events around "
+        "each corrupt call on the stream, no sync added to the pass)")
+
+
+def sweep_phase(dev, tmp: str, start_path: str, dataset_cls,
+                kernel_fns) -> dict:
+    """Phase 7. Returns the kernels' launch counts on the sweep."""
+    import csv
+
+    root = os.path.join(tmp, "sweep")
+    counts = write_coco(root, "val2017", [int(c) for c in np.random.RandomState(
+        SEED + 20).randint(2, 9, 20)], np.random.RandomState(SEED + 21))
+    argv = ["--cfg", CFG, "--on_the_fly", "--device", str(dev),
+            "--modelDir", os.path.join(tmp, "sweep_out"),
+            "--logDir", os.path.join(tmp, "sweep_log"), "DATASET.ROOT", root,
+            "TEST.MODEL_FILE", start_path]
+
+    def build(cfg, is_train, image_set=None):
+        return dataset_cls(cfg, is_train, image_set)
+
+    sw = run_sweep(argv, build, kernel_fns)
+    result, launches = sw["result"], sw["launches"]
+    n_pass = 1 + 15 * 5
+    n_batches = -(-sum(counts) // 128)
+    log(f"[sweep] tools/test_corruption.main --on_the_fly: {n_pass} passes "
+        f"over {sum(counts)} people in {len(counts)} images ({n_batches} "
+        f"batch of 128) in {sw['wall']:.2f} s, launches {launches}")
     with open(result["csv"]) as f:
         row = next(csv.DictReader(f))
     for k in ("clean_mAP", "mean_corrupted_mAP", "rAP"):
@@ -1123,19 +1172,10 @@ def sweep_phase(dev, tmp: str, start_path: str, dataset_cls,
         raise AssertionError(f"batched OKS launched "
                              f"{launches['oks_matrix_batched']} times, "
                              f"expected {n_pass}")
-    aps = [r[3] for r in result["runs"]]
-    if not all(np.isfinite(a) for a in aps):
-        raise AssertionError(f"a pass scored {aps}")
-    log(f"[sweep] robust_C.val {len(lines)} lines; CSV clean_mAP "
+    log(f"[sweep] robust_C.val {n_pass} lines; CSV clean_mAP "
         f"{row['clean_mAP']} mean_corrupted_mAP {row['mean_corrupted_mAP']} "
         f"rAP {row['rAP']} (random weights)")
-    steady = pass_s[1:]
-    log(f"[sweep] s/pass: first (clean, cuDNN autotuning) {pass_s[0]:.3f}, "
-        f"the other 75 mean {mean(steady):.3f} (min {min(steady):.3f}, max "
-        f"{max(steady):.3f}); corruption {sum(corrupt_s):.3f} s in all = "
-        f"{100 * sum(corrupt_s) / sum(steady):.1f}% of the corrupted passes "
-        f"({mean(corrupt_s) * 1e3:.1f} ms per pass: CUDA events around "
-        "each corrupt call on the stream, no sync added to the pass)")
+    log_sweep_times("sweep", sw)
     return launches
 
 
@@ -1183,6 +1223,568 @@ def random_corruption_train_phase(dev, tmp: str, start_path: str,
     del result
     torch.cuda.empty_cache()
     return launches
+
+
+def random_model(cfg, where: torch.device):
+    """cfg's model on `where`, f32, eval mode: He-normal convs from a
+    generator seeded SEED, and BN running stats from the batch statistics
+    of seeded random images, so that every layer's activations, and the
+    heatmaps, are O(1)."""
+    from advmix_tpu_torch.models import get_pose_net, he_reinit_convs
+
+    model = get_pose_net(cfg)
+    he_reinit_convs(model, torch.Generator().manual_seed(SEED))
+    w, h = cfg.MODEL.IMAGE_SIZE
+    calib = torch.from_numpy(np.random.RandomState(SEED + 2).randint(
+        0, 256, (4, 3, h, w)).astype(np.float32) / 64.0 - 2.0)
+    model = model.to(where)
+    for mod in model.modules():
+        if isinstance(mod, torch.nn.BatchNorm2d):
+            mod.reset_running_stats()
+            mod.momentum = None  # cumulative: one batch sets the stats
+    model.train()
+    with torch.no_grad():
+        model(calib.to(where))
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                # a channel nearly dead on the calibration batch would
+                # otherwise get a gain of up to 1/sqrt(eps)
+                mod.running_var.clamp_(min=1e-2)
+    return model.eval()
+
+
+def first_batch(loader, prep, dev) -> dict:
+    """The eval step's device batch of the loader's first batch."""
+    from advmix_tpu_torch.engine.trainer import to_device
+
+    batches = iter(loader)
+    host = next(batches)
+    batches.close()  # shuts the loader's thread pool down
+    batch = prep(to_device(host["image"], dev), to_device(host["joints"], dev),
+                 to_device(host["joints_vis"], dev))
+    batch.update(center=to_device(host["center"].astype(np.float32), dev),
+                 scale=to_device(host["scale"].astype(np.float32), dev))
+    return batch
+
+
+def launch_counts(kernel_fns) -> dict:
+    return {fn.__name__: fn.launches for fn in kernel_fns}
+
+
+def log_families(tag: str, prof: dict) -> None:
+    for fam, (ms, n) in prof["families"].items():
+        log(f"[{tag}]   {ms:9.3f} ms/step {n:6d} launches  {fam}")
+    for name, ms, n in prof["top"]:
+        log(f"[{tag}]   top: {ms:9.3f} ms/step {n:6d} launches  {name}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the other COCO families
+# ---------------------------------------------------------------------------
+
+FAMILIES = (
+    ("HRNet-W48", "experiments/coco/hrnet/w48_256x192_advmix.yaml"),
+    ("ResNet-50", "experiments/coco/resnet/res50_256x192_advmix.yaml"),
+    ("ResNet-101", "experiments/coco/resnet/res101_256x192_advmix.yaml"),
+    ("ResNet-152", "experiments/coco/resnet/res152_256x192_advmix.yaml"),
+)
+EVAL_BATCH = 128
+
+
+def families_phase(dev, tmp: str, dataset_cls, kernel_fns) -> dict:
+    """Phase 9. Each family's YAML at full width and depth, seeded random
+    weights, bf16, flip test, batch 128, through validate() on phase 4's
+    val set; then one batch timed and profiled. Returns the kernels' launch
+    counts summed over the four passes."""
+    from advmix_tpu_torch.config import get_default_config
+    from advmix_tpu_torch.data import Loader
+    from advmix_tpu_torch.engine.steps import make_eval_step
+    from advmix_tpu_torch.engine.trainer import make_eval_preprocessor, \
+        validate
+    from advmix_tpu_torch.models.layers import set_compute_dtype
+
+    total = {fn.__name__: 0 for fn in kernel_fns}
+    for name, rel in FAMILIES:
+        cfg = get_default_config()
+        cfg.merge_from_file(os.path.join(HERE, rel))
+        cfg.DATASET.ROOT = tmp
+        cfg.TEST.BATCH_SIZE_PER_GPU = EVAL_BATCH  # W48's YAML has 64
+        cfg.freeze()
+        dataset = dataset_cls(cfg, is_train=False)
+        loader = Loader(dataset, EVAL_BATCH)
+        model = random_model(cfg, dev)
+        card_matches_cpu(name, model, dev, cfg.MODEL.IMAGE_SIZE)
+        set_compute_dtype(model, torch.bfloat16)
+        eval_step = make_eval_step(model, cfg, dataset.flip_pairs)
+        prep = make_eval_preprocessor(cfg, dev)
+        torch.cuda.reset_peak_memory_stats()
+
+        for fn in kernel_fns:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        _, ap = validate(cfg, eval_step, prep, dataset, loader,
+                         os.path.join(tmp, "out_" + name), dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(kernel_fns)
+        if launches["decode_heatmaps"] != len(loader):
+            raise AssertionError(f"{name}: decode launched "
+                                 f"{launches['decode_heatmaps']} times for "
+                                 f"{len(loader)} batches")
+        for k in ("oks_matrix_batched", "oks_matrix"):
+            if launches[k] < 1:
+                raise AssertionError(f"{name}: {k} was not launched")
+        if not (np.isfinite(ap) and -1.0 <= ap <= 1.0):
+            raise AssertionError(f"{name}: AP {ap} is not a valid score")
+        for k in total:
+            total[k] += launches[k]
+
+        batch = first_batch(loader, prep, dev)
+        preds, maxvals, _ = eval_step(batch)
+        if preds.shape != (EVAL_BATCH, 17, 2) or not (
+                torch.isfinite(preds).all() and torch.isfinite(maxvals).all()):
+            raise AssertionError(f"{name}: preds {tuple(preds.shape)} not "
+                                 "finite")
+        ms = wall_ms(lambda: eval_step(batch))
+        prof = profile_by_family(lambda: eval_step(batch), steps=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[families] {name} ({rel}): validate() {wall:.2f} s over "
+            f"{len(dataset)} people, COCO eval {dataset.eval_seconds:.3f} s, "
+            f"AP {ap:.4f} (random weights), launches {launches}")
+        log(f"[families] {name} eval step (2 bf16 forwards + decode) at "
+            f"batch {EVAL_BATCH}: {ms:.3f} ms/batch, "
+            f"{EVAL_BATCH / ms * 1e3:.1f} img/s; profile of 3 steps: wall "
+            f"{prof['wall_ms']:.3f} ms/step, device busy "
+            f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_share']:.1f}%), "
+            f"{prof['kernels']} kernels per step; peak device memory "
+            f"{peak:.2f} GiB")
+        if name == "ResNet-152":
+            log_families("families", prof)
+        del model, eval_step, batch, preds, maxvals
+        torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 10: MPII at full width
+# ---------------------------------------------------------------------------
+
+MPII_CFG = os.path.join(HERE, "experiments/mpii/hrnet/w32_256x256_advmix.yaml")
+MPII_JOINTS = ("rank", "rkne", "rhip", "lhip", "lkne", "lank", "pelvis",
+               "thorax", "upper neck", "head", "rwri", "relb", "rsho", "lsho",
+               "lelb", "lwri")
+MPII_SHAPE = (EVAL_BATCH, 16, 64, 64)
+DEBUG_OPTS = ["DEBUG.DEBUG", "True", "DEBUG.SAVE_BATCH_IMAGES_GT", "True",
+              "DEBUG.SAVE_BATCH_IMAGES_PRED", "True",
+              "DEBUG.SAVE_HEATMAPS_GT", "True",
+              "DEBUG.SAVE_HEATMAPS_PRED", "True"]
+
+
+def write_mpii(root: str, image_set: str, n: int, rng,
+               per_image: int = 2) -> None:
+    """annot/<image_set>.json of n people, `per_image` to a 640x480 JPEG of
+    seeded noise, 1-based as the MPII release stores them; for the valid set
+    also annot/gt_valid.mat (scipy.io.savemat) with some joints missing."""
+    import cv2
+    from scipy.io import savemat
+
+    os.makedirs(os.path.join(root, "annot"), exist_ok=True)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    for i in range(-(-n // per_image)):
+        cv2.imwrite(os.path.join(root, "images", f"{image_set}_{i:05d}.jpg"),
+                    rng.randint(0, 256, (480, 640, 3)).astype(np.uint8))
+    anno = []
+    pos, head, missing = np.zeros((16, 2, n)), np.zeros((2, 2, n)), \
+        np.zeros((16, n))
+    for k in range(n):
+        scale = rng.uniform(1.0, 1.8)  # a box 200 * scale px high
+        c = np.array([rng.uniform(160, 480), rng.uniform(160, 320)])
+        joints = c + rng.uniform(-0.4, 0.4, (16, 2)) * 200 * scale
+        vis = (rng.rand(16) > 0.1).astype(int)
+        anno.append(dict(image=f"{image_set}_{k // per_image:05d}.jpg",
+                         center=c.tolist(), scale=scale,
+                         joints=joints.tolist(), joints_vis=vis.tolist()))
+        pos[:, :, k] = joints
+        missing[:, k] = 1 - vis
+        half = 0.15 * 200 * scale
+        head[:, :, k] = [joints[9] - half, joints[9] + half]
+    with open(os.path.join(root, "annot", f"{image_set}.json"), "w") as f:
+        json.dump(anno, f)
+    if image_set == "valid":
+        names = np.zeros((1, 16), object)
+        names[0, :] = MPII_JOINTS
+        savemat(os.path.join(root, "annot", "gt_valid.mat"),
+                dict(dataset_joints=names, jnt_missing=missing,
+                     pos_gt_src=pos, headboxes_src=head))
+
+
+def decode_shape_phase(dev, rng, flush, shape) -> dict:
+    """The decode kernel at `shape` against its plain version, bit for bit:
+    the wrapper (vector route), the wrapper on a 4-byte aligned view (scalar
+    route) and each route forced, with and without the quarter offset; then
+    routes, wrapper and plain version timed in turns with a cold L2."""
+    from advmix_tpu_torch.ops.cuda.decode_kernel import (
+        decode_heatmaps, decode_heatmaps_plain, decode_route)
+    from advmix_tpu_torch.ops.cuda.timing import decode_by
+
+    b, j, h, w = shape
+    hm = torch.from_numpy(decode_inputs(rng, b, j, h, w)).to(dev)
+    shifted = torch.empty(hm.numel() + 1, device=dev)[1:].view_as(hm)
+    shifted.copy_(hm)
+    if decode_route(h, w, hm.data_ptr()) != "vector" or decode_route(
+            h, w, shifted.data_ptr()) != "scalar":
+        raise AssertionError(f"decode_route at {shape}: aligned maps must "
+                             "take the vector route, the shifted view the "
+                             "scalar one")
+    err = 0.0
+    for post in (True, False):
+        cp, mp = decode_heatmaps_plain(hm, post_process=post)
+        runs = {"wrapper": decode_heatmaps(hm, post),
+                "wrapper, shifted view": decode_heatmaps(shifted, post),
+                "scalar": decode_by("scalar", hm, post),
+                "vector": decode_by("vector", hm, post)}
+        torch.cuda.synchronize()
+        for name, got in runs.items():
+            if not (torch.equal(got[0], cp) and torch.equal(got[1], mp)):
+                bad = (got[0] != cp).any(-1).nonzero()[:5].tolist()
+                raise AssertionError(f"decode {name} at {shape} (post="
+                                     f"{post}) differs from the plain version "
+                                     f"at maps {bad}")
+        fin = torch.isfinite(mp)
+        ck, mk = runs["wrapper"]
+        err = max(err, float((ck - cp).abs().max()),
+                  float((mk - mp)[fin].abs().max()))
+    log(f"[kernels] decode {shape}: the wrapper, the wrapper on a 4-byte "
+        "aligned view and both routes forced are bit-equal to the plain "
+        "version (random, ties, bf16, zero, negative, -inf, border peaks)")
+    hm_main = torch.randn(*shape, device=dev)
+    nb, by = bound(b * j * h * w * 4 + b * j * 3 * 4, b * j * h * w)
+    fns = {r: (lambda r=r: decode_by(r, hm_main)) for r in ("scalar",
+                                                            "vector")}
+    fns["wrapper"] = lambda: decode_heatmaps(hm_main)
+    fns["plain"] = lambda: decode_heatmaps_plain(hm_main)
+    times = {k: mean(v) for k, v in in_turns(fns, flush).items()}
+    for name, t in times.items():
+        log(f"[kernels] decode {shape} cold L2, {name}: {t:.5f} ms = "
+            f"{100 * nb / t:.1f}% of the bound {nb:.5f} ms ({by})")
+    return dict(shape=f"{shape} f32, MPII's eval batch, cold L2",
+                max_abs_err=err, ms=times["wrapper"],
+                plain_ms=times["plain"], bound_ms=nb, bound_by=by,
+                scalar_route_ms=times["scalar"])
+
+
+def mpii_phase(dev, tmp: str, kernel_fns, rng, flush) -> dict:
+    """Phase 10. Returns the kernels' launches on the MPII training run and
+    on the MPII sweep, and the decode kernel's check and times at MPII's
+    shape. The YAML computes in f32: its training, sweep and timings run
+    with cuDNN's TF32 on, torch's default, as a user runs them."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = mpii_paths(dev, tmp, kernel_fns)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    out["decode"] = decode_shape_phase(dev, rng, flush, MPII_SHAPE)
+    return out
+
+
+def mpii_paths(dev, tmp: str, kernel_fns) -> dict:
+    import csv
+
+    import advmix_tpu_torch.engine.trainer as trainer_mod
+    from advmix_tpu_torch.config import get_default_config
+    from advmix_tpu_torch.tools import train as train_tool
+    from advmix_tpu_torch.tools.bench import time_advmix
+
+    base = os.path.join(tmp, "mpii")
+    root = os.path.join(base, "mpii")
+    # 48 + 48 stylized training people: only the union makes the 3 batches
+    # of 32 that drop_last leaves
+    write_mpii(root, "train", 48, np.random.RandomState(SEED + 30))
+    write_mpii(root, "valid", EVAL_BATCH, np.random.RandomState(SEED + 31))
+    write_mpii(os.path.join(base, "stylize_image_mpii"), "train", 48,
+               np.random.RandomState(SEED + 32))
+    cfg = get_default_config()
+    cfg.merge_from_file(MPII_CFG)
+    cfg.freeze()
+    # D and the teacher start from seeded weights with calibrated BN, as
+    # phase 5's do: an eval-mode teacher on raw He-normal weights explodes
+    start = os.path.join(tmp, "mpii_start.pth")
+    torch.save(random_model(cfg, dev).state_dict(), start)
+    out_dir = os.path.join(tmp, "mpii_out")
+    argv = ["--cfg", MPII_CFG, "--advmix", "--sample_times", "3",
+            "--stylize_image", "--sp_style", "1", "--device", str(dev),
+            "--load_from_D", start, "--modelDir", out_dir,
+            "--logDir", os.path.join(tmp, "mpii_log"), "DATASET.ROOT", root,
+            "TRAIN.END_EPOCH", "1", "TEST.BATCH_SIZE_PER_GPU",
+            str(EVAL_BATCH), *DEBUG_OPTS]
+    dump_s = {"train": [], "val": []}
+    real_dumps = (trainer_mod._dump_debug_images,
+                  trainer_mod._dump_val_debug_images)
+
+    def timed(kind, fn):
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            fn(*a, **k)
+            dump_s[kind].append(time.perf_counter() - t)
+        return wrapped
+
+    trainer_mod._dump_debug_images = timed("train", real_dumps[0])
+    trainer_mod._dump_val_debug_images = timed("val", real_dumps[1])
+    for fn in kernel_fns:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        result = train_tool.main(argv)
+    finally:
+        (trainer_mod._dump_debug_images,
+         trainer_mod._dump_val_debug_images) = real_dumps
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    final_state = result["final_state"]
+    train_launches = launch_counts(kernel_fns)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    history = result["history"]
+    if len(history) != 1 or len(history[0]) != TRAIN_ITERS:
+        raise AssertionError(f"MPII: trained {[len(h) for h in history]} "
+                             f"iterations, expected {TRAIN_ITERS}")
+    for i, m in enumerate(history[0]):
+        if not (np.isfinite(m["loss_d"]) and np.isfinite(m["loss_g"])
+                and m["loss_d"] > 0 and m["loss_g"] < 0):
+            raise AssertionError(f"MPII iteration {i}: losses {m}")
+    if not (np.isfinite(result["perf"]) and 0.0 <= result["perf"] <= 100.0):
+        raise AssertionError(f"MPII PCKh Mean {result['perf']}")
+    if train_launches != {"decode_heatmaps": 1, "oks_matrix_batched": 0,
+                          "oks_matrix": 0}:
+        raise AssertionError(f"MPII training launches {train_launches}: "
+                             "one validation batch decodes, PCKh has no NMS")
+    debug_dir = os.path.join(out_dir, "mpii", "pose_hrnet", "debug")
+    want = {f"{p}_{f}.jpg" for p in ("train_0_0", "train_0_0_mixed", "val_0")
+            for f in ("gt", "pred", "hm_gt", "hm_pred")}
+    got = set(os.listdir(debug_dir)) if os.path.isdir(debug_dir) else set()
+    if got != want:
+        raise AssertionError(f"debug dumps {sorted(got)}, expected "
+                             f"{sorted(want)}")
+    if not os.path.isfile(os.path.join(result["output_dir"], "pred.mat")):
+        raise AssertionError("validate() wrote no pred.mat")
+    losses = ", ".join(f"{m['loss_d']:.6f}/{m['loss_g']:.6f}"
+                       for m in history[0])
+    log(f"[mpii] tools/train.main {os.path.relpath(MPII_CFG, HERE)} --advmix "
+        f"--sample_times 3 --stylize_image --sp_style 1 DEBUG.DEBUG True "
+        f"(f32 per the YAML, cuDNN TF32 on; cuDNN autotuning included), 1 "
+        f"epoch of {TRAIN_ITERS} iterations of batch "
+        f"32 over 48 + 48 stylized people + validate() on {EVAL_BATCH}: "
+        f"{wall:.2f} s, peak device memory {peak:.2f} GiB; loss_d/loss_g "
+        f"{losses}; PCKh Mean {result['perf']:.4f} (random weights); "
+        f"{len(got)} dump files; launches {train_launches}")
+    log(f"[mpii] DEBUG dumps (host clock around each, the read-back "
+        f"included): training {', '.join(f'{x:.3f}' for x in dump_s['train'])}"
+        f" s for a batch of 32 (the input and the mix), validation "
+        f"{', '.join(f'{x:.3f}' for x in dump_s['val'])} s for a batch of "
+        f"{EVAL_BATCH}")
+    del result
+    torch.cuda.empty_cache()
+
+    t = time_advmix(cfg, dev, 32, torch.float32, iters=5,
+                    inspect=profile_by_family)
+    prof = t["inspect"]
+    log(f"[mpii] AdvMix f32 batch 32 at 256x256 (tools/bench.time_advmix, "
+        f"cuDNN TF32 on): view synthesis {t['views_ms']:.3f} ms, step "
+        f"{t['step_ms']:.3f} ms, both {t['both_ms']:.3f} ms/iteration = "
+        f"{t['img_per_s']:.1f} img/s; peak device memory "
+        f"{t['peak_gib']:.2f} GiB; profile of 2 iterations: device busy "
+        f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_share']:.1f}%), "
+        f"{prof['kernels']} kernels per iteration")
+    torch.cuda.empty_cache()
+
+    argv = ["--cfg", MPII_CFG, "--on_the_fly", "--device", str(dev),
+            "--modelDir", os.path.join(tmp, "mpii_sweep_out"), "--logDir",
+            os.path.join(tmp, "mpii_sweep_log"), "DATASET.ROOT", root,
+            "TEST.MODEL_FILE", final_state, "TEST.BATCH_SIZE_PER_GPU",
+            str(EVAL_BATCH)]
+    sw = run_sweep(argv, None, kernel_fns)
+    n_pass = 1 + 15 * 5
+    if sw["launches"] != {"decode_heatmaps": n_pass, "oks_matrix_batched": 0,
+                          "oks_matrix": 0}:
+        raise AssertionError(f"MPII sweep launches {sw['launches']}")
+    with open(sw["result"]["csv"]) as f:
+        row = next(csv.DictReader(f))
+    for k in ("clean_mean", "mean_corrupted_mean", "rmean"):
+        if not np.isfinite(float(row[k])):
+            raise AssertionError(f"MPII CSV {k} = {row[k]} is not finite")
+    mats = [n for n in os.listdir(sw["result"]["output_dir"])
+            if n.endswith("_pred.mat")]
+    if len(mats) != n_pass:
+        raise AssertionError(f"{len(mats)} pred.mat files for {n_pass} "
+                             "passes")
+    log(f"[mpii] tools/test_corruption.main --on_the_fly: {n_pass} passes "
+        f"over {EVAL_BATCH} people (one batch) in {sw['wall']:.2f} s, "
+        f"launches {sw['launches']}; CSV clean_mean {row['clean_mean']} "
+        f"mean_corrupted_mean {row['mean_corrupted_mean']} rmean "
+        f"{row['rmean']} (random weights)")
+    log_sweep_times("mpii", sw)
+    return dict(train=train_launches, sweep=sw["launches"])
+
+
+# ---------------------------------------------------------------------------
+# phase 11: soft-argmax
+# ---------------------------------------------------------------------------
+
+SOFT_TOL_PX = 1e-3  # card vs CPU, heatmap px
+
+
+def peaked_maps(rng, b, j, h, w) -> np.ndarray:
+    """Noise plus one Gaussian peak per map at a sub-pixel position, some
+    off the map: the soft-argmax lands between pixels."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    cx = rng.uniform(-2, w + 1, (b, j, 1, 1))
+    cy = rng.uniform(-2, h + 1, (b, j, 1, 1))
+    s = rng.uniform(1.0, 3.0, (b, j, 1, 1))
+    a = rng.uniform(0.2, 1.0, (b, j, 1, 1))
+    return (rng.rand(b, j, h, w) * 0.05 + a * np.exp(
+        -((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * s * s))).astype(np.float32)
+
+
+def soft_argmax_phase(dev, tmp: str, start_path: str, dataset_cls,
+                      kernel_fns) -> dict:
+    """Phase 11. Returns the kernels' launches on the soft-argmax pass and
+    the times."""
+    from advmix_tpu_torch.config import get_default_config
+    from advmix_tpu_torch.data import Loader
+    from advmix_tpu_torch.engine.steps import make_eval_step
+    from advmix_tpu_torch.engine.trainer import make_eval_preprocessor, \
+        validate
+    from advmix_tpu_torch.models import get_pose_net, load_model_file
+    from advmix_tpu_torch.models.layers import set_compute_dtype
+    from advmix_tpu_torch.ops.cuda.decode_kernel import decode_heatmaps
+    from advmix_tpu_torch.ops.heatmap import get_final_preds_softargmax, \
+        soft_argmax
+    from advmix_tpu_torch.ops.transforms import transform_preds_batch
+
+    cfgs = {}
+    for soft in (False, True):
+        cfg = get_default_config()
+        cfg.merge_from_file(CFG)
+        cfg.DATASET.ROOT = tmp
+        cfg.TEST.SOFT_ARGMAX = soft
+        cfg.freeze()
+        cfgs[soft] = cfg
+    model = get_pose_net(cfgs[True])
+    load_model_file(model, start_path)  # phase 4's weights
+    set_compute_dtype(model.to(dev).eval(), torch.bfloat16)
+    dataset = dataset_cls(cfgs[True], is_train=False)
+    loader = Loader(dataset, EVAL_BATCH)
+    prep = make_eval_preprocessor(cfgs[True], dev)
+    steps_ = {soft: make_eval_step(model, cfgs[soft], dataset.flip_pairs)
+              for soft in (False, True)}
+
+    for fn in kernel_fns:
+        fn.launches = 0
+    _, ap = validate(cfgs[True], steps_[True], prep, dataset, loader,
+                     os.path.join(tmp, "out_soft"), dev)
+    torch.cuda.synchronize()
+    launches = launch_counts(kernel_fns)
+    if launches["decode_heatmaps"] != 0 or launches["oks_matrix_batched"] < 1:
+        raise AssertionError(f"TEST.SOFT_ARGMAX launches {launches}: the "
+                             "decode kernel must not run, batched OKS must")
+    if not (np.isfinite(ap) and -1.0 <= ap <= 1.0):
+        raise AssertionError(f"TEST.SOFT_ARGMAX AP {ap}")
+    log(f"[soft] validate() with TEST.SOFT_ARGMAX True: AP {ap:.4f} (random "
+        f"weights), launches {launches}")
+
+    batch = first_batch(loader, prep, dev)
+    maps = {"W32 step's heatmaps": steps_[True].forward(batch["image"]),
+            "peaked maps": torch.from_numpy(peaked_maps(
+                np.random.RandomState(SEED + 40), *MPII_SHAPE)).to(dev)}
+    times = {}
+    for label, hm in maps.items():
+        pc, mc = soft_argmax(hm)
+        pr, mr = soft_argmax(hm.cpu())
+        d = float((pc.cpu() - pr).abs().max())
+        # a confidence is read at the rounded coordinate: it may differ only
+        # where the two coordinates round apart
+        near = ((pr - pr.floor() - 0.5).abs() < SOFT_TOL_PX).any(-1)
+        off = (mc.cpu() != mr)[..., 0]
+        if not (torch.isfinite(pc).all() and d <= SOFT_TOL_PX
+                and not (off & ~near).any()):
+            raise AssertionError(f"soft-argmax on the card vs the CPU, "
+                                 f"{label} {tuple(hm.shape)}: max |diff| "
+                                 f"{d:.3g} px (limit {SOFT_TOL_PX}), "
+                                 f"{int(off.sum())} confidences differ")
+        b, j, h, w = hm.shape
+        center = batch["center"][:1].expand(b, 2).contiguous()
+        scale = batch["scale"][:1].expand(b, 2).contiguous()
+
+        def soft_fn(hm=hm, center=center, scale=scale):
+            return get_final_preds_softargmax(hm, center, scale)
+
+        def argmax_fn(hm=hm, center=center, scale=scale):
+            coords, maxvals = decode_heatmaps(hm)
+            return transform_preds_batch(coords, center, scale, (w, h))
+
+        t = {k: mean(v) for k, v in in_turns(
+            {"decode kernel + inverse affine": argmax_fn,
+             "soft-argmax + quarter offset + inverse affine": soft_fn},
+            iters=20).items()}
+        times[label] = t
+        log(f"[soft] {label} {tuple(hm.shape)}: card vs CPU coordinates "
+            f"max |diff| {d:.3g} heatmap px (limit {SOFT_TOL_PX}), "
+            f"{int(off.sum())} confidences read at a coordinate that rounds "
+            "the other way; " + "; ".join(f"{k} {v:.5f} ms"
+                                         for k, v in t.items())
+            + " (CUDA events, 20 calls, warm L2)")
+    step = in_turns({"argmax step": lambda: steps_[False](batch),
+                     "soft-argmax step": lambda: steps_[True](batch)},
+                    iters=10)
+    log(f"[soft] W32 eval step at batch {EVAL_BATCH} in turns: "
+        + "; ".join(f"{k} {a:.3f} / {b:.3f} ms" for k, (a, b) in step.items())
+        + " (device time of 10 steps, CUDA events)")
+    del model, steps_, batch, maps
+    torch.cuda.empty_cache()
+    return dict(launches=launches, times=times, step=step)
+
+
+def card_matches_cpu(name: str, model, dev, image_size) -> None:
+    """The model on the card against the same model on the CPU on one
+    seeded random image, leaving it f32 on the card. In float64 the two
+    compute the same function: within 1e-9 of the output's range. In f32
+    (TF32 off) their gap grows with depth through the random weights (a
+    ResNet-152 was 3e-3 of the range apart on an NVIDIA H100 80GB HBM3 at
+    700 W, with the CPU itself 2e-3 from f64), so the card's f32 output is
+    held to the f64 one no further than 10x the CPU's own f32 output is
+    (or 2e-3 of the range, where the CPU's is closer still): cuDNN picks
+    other algorithms than the CPU, while TF32's 10-bit mantissa would round
+    each product 2^13 times coarser than f32's 23 bits."""
+    import copy
+
+    w, h = image_size
+    x = torch.from_numpy(np.random.RandomState(3).randn(
+        1, 3, h, w).astype(np.float32))
+    cpu = copy.deepcopy(model).cpu()
+    model.to(dev)
+    with torch.no_grad():
+        ref64 = cpu.double()(x.double())
+        card64 = model.double()(x.double().to(dev)).cpu()
+        cpu32 = cpu.float()(x)
+        card32 = model.float()(x.to(dev)).cpu()
+    del cpu
+    rng = float(ref64.abs().max())
+    e64 = float((card64 - ref64).abs().max()) / rng
+    e_card = float((card32.double() - ref64).abs().max()) / rng
+    e_cpu = float((cpu32.double() - ref64).abs().max()) / rng
+    gap = float((card32 - cpu32).abs().max()) / rng
+    n_params = sum(p.numel() for p in model.parameters())
+    if not (torch.isfinite(card32).all() and e64 < 1e-9
+            and e_card <= max(10 * e_cpu, 2e-3)):
+        raise AssertionError(
+            f"{name} on the card vs the CPU, over max |f64 output| {rng:.3g}:"
+            f" f64 {e64:.3g} (limit 1e-9); f32 card {e_card:.3g} from the "
+            f"f64 output, CPU {e_cpu:.3g} (limit 10x the CPU's or 2e-3)")
+    log(f"[families] {name} ({n_params} params) on the card vs the CPU, "
+        f"max |diff| / max |f64 output| ({rng:.3g}): f64 {e64:.3g} (limit "
+        f"1e-9); f32 card vs CPU {gap:.3g}, card vs f64 {e_card:.3g}, CPU "
+        f"vs f64 {e_cpu:.3g} (limit 10x the CPU's or 2e-3; TF32 off)")
 
 
 def synthetic_coco_class():
@@ -1238,8 +1840,7 @@ def main() -> None:
     from advmix_tpu_torch.data import Loader
     from advmix_tpu_torch.engine.steps import make_eval_step
     from advmix_tpu_torch.engine.trainer import (make_eval_preprocessor,
-                                                 to_device, validate)
-    from advmix_tpu_torch.models import get_pose_net, he_reinit_convs
+                                                 validate)
     from advmix_tpu_torch.models.layers import set_compute_dtype
     from advmix_tpu_torch.native import get_lib
     from advmix_tpu_torch.ops.cuda import build as kbuild
@@ -1306,26 +1907,7 @@ def main() -> None:
         f"{len(got_counts)} images, {len(loader)} batches of "
         f"{cfg.TEST.BATCH_SIZE_PER_GPU}")
 
-    gen = torch.Generator().manual_seed(SEED)
-    model = get_pose_net(cfg)
-    he_reinit_convs(model, gen)
-    # BN running stats from the batch statistics of seeded random images,
-    # so every layer's activations, and the heatmaps, are O(1)
-    calib = torch.from_numpy(np.random.RandomState(SEED + 2).randint(
-        0, 256, (4, 3, 256, 192)).astype(np.float32) / 64.0 - 2.0)
-    for mod in model.modules():
-        if isinstance(mod, torch.nn.BatchNorm2d):
-            mod.reset_running_stats()
-            mod.momentum = None  # cumulative: one batch sets the stats
-    model.train()
-    with torch.no_grad():
-        model(calib)
-        for mod in model.modules():
-            if isinstance(mod, torch.nn.BatchNorm2d):
-                # a channel nearly dead on the calibration batch would
-                # otherwise get a gain of up to 1/sqrt(eps)
-                mod.running_var.clamp_(min=1e-2)
-    model.eval()
+    model = random_model(cfg, torch.device("cpu"))
     n_params = sum(p.numel() for p in model.parameters())
     # the training phase starts D and the teacher from these weights
     start_path = os.path.join(tmp, "d_start.pth")
@@ -1381,13 +1963,7 @@ def main() -> None:
 
     # one batch again: the step's heatmaps through the kernel and through
     # the plain decode must give identical predictions
-    batches = iter(loader)
-    host = next(batches)
-    batches.close()  # shuts the loader's thread pool down
-    batch = prep(to_device(host["image"], dev), to_device(host["joints"], dev),
-                 to_device(host["joints_vis"], dev))
-    batch.update(center=to_device(host["center"], dev),
-                 scale=to_device(host["scale"], dev))
+    batch = first_batch(loader, prep, dev)
     heat = eval_step.forward(batch["image"])
     if heat.shape != (128, 17, 64, 48) or not torch.isfinite(heat).all():
         raise AssertionError(f"heatmaps {tuple(heat.shape)} not finite")
@@ -1418,30 +1994,42 @@ def main() -> None:
     # ---- 5. AdvMix training through the train entry point -----------------
     del model, eval_step, batch, heat
     torch.cuda.empty_cache()
-    train_launches = train_phase(
-        dev, tmp, start_path, SyntheticCropCOCO,
-        (decode_heatmaps, oks_matrix_batched, oks_matrix))
+    kernel_fns = (decode_heatmaps, oks_matrix_batched, oks_matrix)
+    paths = {}  # launches on each later path, by its key in the JSON line
+    paths["train"] = train_phase(dev, tmp, start_path, SyntheticCropCOCO,
+                                 kernel_fns)
 
     # ---- 6. corruptions -----------------------------------------------------
     corruption_phase(dev)
 
     # ---- 7. the robustness sweep through its entry point ------------------
-    kernel_fns = (decode_heatmaps, oks_matrix_batched, oks_matrix)
-    sweep_launches = sweep_phase(dev, tmp, start_path, SyntheticCropCOCO,
+    paths["sweep"] = sweep_phase(dev, tmp, start_path, SyntheticCropCOCO,
                                  kernel_fns)
 
     # ---- 8. --random_corruption training ----------------------------------
-    rc_launches = random_corruption_train_phase(dev, tmp, start_path,
-                                                SyntheticCropCOCO, kernel_fns)
+    paths["train_random_corruption"] = random_corruption_train_phase(
+        dev, tmp, start_path, SyntheticCropCOCO, kernel_fns)
+
+    # ---- 9. the other COCO families --------------------------------------
+    paths["families"] = families_phase(dev, tmp, SyntheticCropCOCO,
+                                       kernel_fns)
+
+    # ---- 10. MPII: training, PCKh, the MPII-C sweep, decode at 16x64x64 ---
+    mpii = mpii_phase(dev, tmp, kernel_fns, rng, flush)
+    paths["mpii_train"], paths["mpii_sweep"] = mpii["train"], mpii["sweep"]
+    report["decode_heatmaps"]["mpii_shape"] = mpii["decode"]
+
+    # ---- 11. TEST.SOFT_ARGMAX ---------------------------------------------
+    paths["soft_argmax"] = soft_argmax_phase(
+        dev, tmp, start_path, SyntheticCropCOCO, kernel_fns)["launches"]
 
     kernels = []
     for k in ("decode_heatmaps", "oks_matrix_batched", "oks_matrix"):
         r = dict(report[k])
         # the eval path's count; each later path's own beside it
         r["launches"] = launches[k]
-        r["launches_train"] = train_launches[k]
-        r["launches_sweep"] = sweep_launches[k]
-        r["launches_train_random_corruption"] = rc_launches[k]
+        for path, counts in paths.items():
+            r[f"launches_{path}"] = counts[k]
         kernels.append(r)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ are `chip_smoke.py`'s, at the eval path's shapes and at shapes that cross
 the kernels' tile, vector and alignment edges.
 
 Tolerances: decode is bit-equal (the same comparisons, the same f32 adds
-of 0.25). OKS: rtol 1e-5, atol 1e-6, since CUDA's `expf` and torch's `exp`
+of 0.25), at COCO's and MPII's shapes; soft-argmax (plain PyTorch) within
+1e-3 heatmap px of the CPU. OKS: rtol 1e-5, atol 1e-6, since CUDA's `expf` and torch's `exp`
 may differ in the last bit. Keep lists: equal. Corruptions (plain PyTorch on
 the card, no hand kernel): the card and the CPU at most 1 uint8 level apart
 on at most 0.5% of values.
@@ -95,6 +96,35 @@ def test_cuda_decode_designs_match_plain(cuda, design):
         ck, mk = decode_by(design, hm, post_process)
         cp, mp = decode_heatmaps_plain(hm, post_process)
         assert torch.equal(ck, cp) and torch.equal(mk, mp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", ["scalar", "vector"])
+def test_cuda_decode_at_mpii_shape_matches_plain(cuda, design):
+    """MPII's eval batch (128, 16, 64, 64): either route, bit for bit."""
+    hm = torch.from_numpy(decode_inputs(np.random.RandomState(1), 128, 16,
+                                        64, 64)).to(cuda)
+    for post_process in (True, False):
+        ck, mk = decode_by(design, hm, post_process)
+        cp, mp = decode_heatmaps_plain(hm, post_process)
+        assert torch.equal(ck, cp) and torch.equal(mk, mp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 17, 64, 48), (128, 16, 64, 64)])
+def test_cuda_soft_argmax_matches_cpu(cuda, shape):
+    """TEST.SOFT_ARGMAX's decode (plain PyTorch, no hand kernel): the card's
+    coordinates within 1e-3 heatmap px of the CPU's (the softmax and the
+    sums of 3,072 or 4,096 terms are ordered differently)."""
+    from advmix_tpu_torch.ops.heatmap import soft_argmax
+    from chip_smoke import peaked_maps
+
+    hm = torch.from_numpy(peaked_maps(np.random.RandomState(2), *shape))
+    pc, mc = soft_argmax(hm.to(cuda))
+    pr, mr = soft_argmax(hm)
+    assert float((pc.cpu() - pr).abs().max()) <= 1e-3
+    near = ((pr - pr.floor() - 0.5).abs() < 1e-3).any(-1)
+    assert not ((mc.cpu() != mr)[..., 0] & ~near).any()
 
 
 @pytest.mark.gpu

@@ -1,7 +1,8 @@
 """The port's train entry point, `python -m advmix_tpu_torch.tools.train
 --device cpu`, on experiments/synthetic/res18_64x64_smoke.yaml: standard and
 AdvMix training run, checkpoint, resume and export; the validate entry point
-reads the export back; options of later slices stop with their message; and
+reads the export back; options of later slices (int8, bottom-up) stop with
+their message; and
 without a card the entry point raises unless asked for the CPU.
 """
 
@@ -103,10 +104,11 @@ def test_train_checkpoints_resumes_and_exports(tmp_path, monkeypatch, mode):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--stylize_image", "--sp_style", "0.5"],
-     "--stylize_image / --sp_style need"),
-    (["--stylize_image"], "--stylize_image / --sp_style need"),
-    (["--sp_style", "0.5"], "--stylize_image / --sp_style need"),
+    (["DATASET.DATASET", "bottomup_coco"],
+     "DATASET.DATASET bottomup_coco is the bottom-up"),
+    (["DATASET.DATASET", "ochuman"], "DATASET.DATASET ochuman is the bottom-up"),
+    (["TRAIN.INT8_TEACHER", "True", "DATASET.DATASET", "ochuman"],
+     "ops/quant.py: the int8 and serving slice; DATASET.DATASET ochuman"),
     (["TRAIN.INT8_TEACHER", "True"], "TRAIN.INT8_TEACHER needs ops/quant.py"),
     (["MODEL.NAME", "pose_higher_hrnet"], "bottom-up"),
 ])
@@ -122,9 +124,9 @@ def test_later_slice_options_stop_with_their_message(tmp_path, monkeypatch,
 
 
 def test_later_slice_flag_exits_nonzero(tmp_path):
-    log = _run("train", tmp_path, "--device", "cpu", "--stylize_image",
-               ok=False)
-    assert "not ported yet: --stylize_image" in log
+    log = _run("train", tmp_path, "--device", "cpu", "TRAIN.INT8_TEACHER",
+               "True", ok=False)
+    assert "not ported yet: TRAIN.INT8_TEACHER" in log
 
 
 def test_train_without_card_raises(tmp_path):
