@@ -1,9 +1,10 @@
 """Datasets: host-side records and the per-sample crop, eval and train.
 
-Port of `advmix_tpu/data/datasets.py` for the top-down datasets (reference
+Port of `advmix_tpu/data/datasets.py` (reference
 `lib/dataset/JointsDataset.py`, `lib/dataset/coco.py:70-83`,
 `lib/dataset/mpii.py:36-41`), and of its `ConcatDataset` for
---stylize_image (`tools/train.py:145-163`). The host
+--stylize_image (`tools/train.py:145-163`); the bottom-up dataset is in
+`data/bottomup.py`. For the top-down datasets the host
 decodes the image, draws the augmentation parameters of a training sample
 (half-body, scale, rotation, flip, in that order from one numpy stream) and
 either warps a fixed-size uint8 crop with cv2 (`get_sample`) or hands on
@@ -390,8 +391,10 @@ def build_dataset(cfg, is_train: bool = False,
         return SyntheticPoseDataset(
             cfg, is_train, length=int(cfg.DATASET.SYNTH_LENGTH))
     if name in ("bottomup_coco", "ochuman"):
-        raise NotImplementedError(f"dataset '{name}' is not ported yet: the "
-                                  "bottom-up HigherHRNet slice")
+        # OCHuman ships COCO-format person_keypoints json: the same loader
+        from .bottomup import BottomUpCOCODataset
+
+        return BottomUpCOCODataset(cfg, is_train, image_set)
     raise KeyError(f"unknown dataset '{name}'")
 
 

@@ -50,10 +50,14 @@ def load_coco_gt_records(
     severity: int = 0,
     root_c: str = "",
     filename_prefix: str = "",
+    coco: Optional[dict] = None,
 ) -> List[dict]:
-    """Ground-truth COCO keypoint records (no pycocotools dependency)."""
-    with open(ann_file) as f:
-        coco = json.load(f)
+    """Ground-truth COCO keypoint records (no pycocotools dependency).
+    `coco` takes the already-parsed annotation file, for a caller that
+    also reads other parts of it (the bottom-up ignore masks)."""
+    if coco is None:
+        with open(ann_file) as f:
+            coco = json.load(f)
 
     images = {im["id"]: im for im in coco["images"]}
     image_ids = sorted(images.keys())

@@ -1,4 +1,4 @@
-"""The top-down train, AdvMix and eval steps.
+"""The train, AdvMix and eval steps, top-down and bottom-up.
 
 Port of `advmix_tpu/engine/steps.py` for one device. The JAX steps are
 functions `state -> state` compiled under `shard_map`; here a step mutates
@@ -24,6 +24,14 @@ its heatmaps (and the AdvMix step the mix), device tensors that the trainer
 reads back only on the batches it dumps (`lib/core/function.py:92-95,
 194-197, 301-316`).
 
+The bottom-up (HigherHRNet) steps follow the public HigherHRNet recipe
+(`steps.py:433-772`): per output scale a heatmap MSE masked by the
+crowd/unannotated valid mask resized to that scale (`_mask_at`), plus the
+AE pull/push at the 1/4 tag head; the AdvMix form adds the masked KD term
+against the teacher's heatmaps. Their eval step (`bottomup_infer_fn`)
+returns the flip-averaged heatmaps aggregated at the 1/2 resolution, the
+tags and the top-k peaks, for host grouping.
+
 Boundary of the eval step as in the JAX step: NHWC (B, H, W, 3) normalized
 images in, coords (B, J, 2) and maxvals (B, J, 1) out. The train steps take
 NCHW images (B, 3, H, W) or views (B, 9, H, W), as the train preprocessor
@@ -37,6 +45,8 @@ from typing import Sequence
 
 import torch
 
+from ..ops.ae import ae_loss, aggregate_heatmaps, bottomup_heatmap_loss, \
+    generate_bottomup_target, resize_bilinear, top_k_peaks
 from ..ops.cuda.decode_kernel import decode_heatmaps
 from ..ops.heatmap import get_final_preds_softargmax, pck_from_sums, \
     pck_sums
@@ -276,4 +286,207 @@ def make_eval_step(model, cfg, flip_pairs: Sequence, debug: bool = False):
         return preds, maxvals, metrics
 
     step.forward = forward
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Bottom-up (HigherHRNet) steps (advmix_tpu/engine/steps.py:433-772)
+# ---------------------------------------------------------------------------
+
+def _mask_at(mask, h: int, w: int):
+    """The (B, S, S) input-resolution valid mask at an output scale,
+    re-binarized: a bilinear resize (antialiased when it shrinks, as
+    `jax.image.resize`) and a 0.5 threshold. None passes through."""
+    if mask is None:
+        return None
+    if mask.shape[1] == h and mask.shape[2] == w:
+        return mask
+    m = resize_bilinear(mask[:, None], (h, w))[:, 0]
+    return (m > 0.5).to(torch.float32)
+
+
+def _bottomup_losses(cfg, pull_factor: float, push_factor: float):
+    """(pose_loss, kd_loss) of the bottom-up steps. `masks` holds the
+    valid mask at each output's scale (entries None for an unmasked
+    loss)."""
+    num_joints = cfg.MODEL.NUM_JOINTS
+    input_size = int(cfg.MODEL.IMAGE_SIZE[0])
+    sigma = float(cfg.MODEL.SIGMA)
+
+    def pose_loss(outs, joints, vis, masks):
+        """Per-scale heatmap MSE + the AE terms of the 1/4 head. Returns
+        (total, pull, push)."""
+        total = 0.0
+        pull = push = None
+        for si, (out, mask) in enumerate(zip(outs, masks)):
+            h, w = out.shape[2], out.shape[3]
+            with torch.no_grad():
+                tgt, locs = generate_bottomup_target(
+                    joints * (h / input_size), vis, (w, h), sigma)
+            total = total + bottomup_heatmap_loss(out[:, :num_joints], tgt,
+                                                  mask=mask)
+            if si == 0:
+                pull, push = ae_loss(out[:, num_joints:], locs, vis)
+        return total + pull_factor * pull + push_factor * push, pull, push
+
+    def kd_loss(outs, teacher_outs, masks):
+        # the ignore regions carry no supervision for the KD term either
+        total = 0.0
+        for out, tout, mask in zip(outs, teacher_outs, masks):
+            total = total + bottomup_heatmap_loss(
+                out[:, :num_joints], tout[:, :num_joints].detach(),
+                mask=mask)
+        return total
+
+    return pose_loss, kd_loss
+
+
+def _masks_for(mask, outs) -> list:
+    return [_mask_at(mask, o.shape[2], o.shape[3]) for o in outs]
+
+
+def _no_pck(device) -> dict:
+    """PCK has no single-person meaning bottom-up: a constant 0 count."""
+    return {"acc": torch.zeros((), device=device),
+            "acc_cnt": torch.zeros((), dtype=torch.int64, device=device)}
+
+
+def make_bottomup_step(state, cfg, pull_factor: float = 0.001,
+                       push_factor: float = 0.001):
+    """Returns `step(batch) -> metrics` that trains `state.model` on
+    batch["image"] (B, 3, S, S) against batch["joints"] (B, M, J, 2) in
+    input coordinates, batch["joints_vis"] (B, M, J) and the optional
+    batch["mask"] (B, S, S). Metrics are device tensors: loss, pull, push,
+    acc, acc_cnt."""
+    pose_loss, _ = _bottomup_losses(cfg, pull_factor, push_factor)
+    model, opt = state.model, state.optimizer
+
+    def step(batch):
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        outs = model(batch["image"])
+        loss, pull, push = pose_loss(outs, batch["joints"],
+                                     batch["joints_vis"],
+                                     _masks_for(batch.get("mask"), outs))
+        loss.backward()
+        opt.step()
+        state.step += 1
+        return {"loss": loss.detach(), "pull": pull.detach(),
+                "push": push.detach(), **_no_pck(loss.device)}
+
+    return step
+
+
+def make_bottomup_advmix_step(state, cfg, alpha: float = 0.1,
+                              adv_loss_weight: float = 1.0,
+                              num_views: int = 3, pull_factor: float = 0.001,
+                              push_factor: float = 0.001):
+    """AdvMix min-max for the bottom-up family (HigherHRNet-W32 512x512
+    AdvMix), sequenced as `make_advmix_step`: G mixes the K views, D
+    updates on the detached mix against the bottom-up loss and the masked
+    KD term of the frozen teacher's heatmaps, then G updates adversarially
+    through the saved mix with the updated D in train mode (D's BN
+    statistics update twice). batch: views (B, 3K, S, S), joints, joints_vis
+    and the optional mask as for `make_bottomup_step`. Metrics: loss_d,
+    loss_g, acc, acc_cnt."""
+    pose_loss, kd_loss = _bottomup_losses(cfg, pull_factor, push_factor)
+    d, g, teacher = state.model_d, state.model_g, state.teacher
+    opt_d, opt_g = state.optimizer_d, state.optimizer_g
+
+    def step(batch):
+        views = batch["views"]
+        joints, vis = batch["joints"], batch["joints_vis"]
+        d.train()
+        g.train()
+        mixed, w = mix_views(g(views), views, num_views)
+        step.last_mix_weights = w.detach()
+        with torch.no_grad():
+            teacher_outs = teacher(views[:, :3])
+
+        # ---- D update on the detached mix ----
+        opt_d.zero_grad(set_to_none=True)
+        outs = d(mixed.detach())
+        masks = _masks_for(batch.get("mask"), outs)
+        loss_d = (pose_loss(outs, joints, vis, masks)[0] * (1.0 - alpha)
+                  + kd_loss(outs, teacher_outs, masks) * alpha)
+        loss_d.backward()
+        opt_d.step()
+        del outs, teacher_outs
+
+        # ---- G update through the saved mix ----
+        mixed_in = mixed.detach().requires_grad_(True)
+        loss_g = -pose_loss(d(mixed_in), joints, vis, masks)[0] \
+            * adv_loss_weight
+        (dmixed,) = torch.autograd.grad(loss_g, mixed_in)
+        opt_g.zero_grad(set_to_none=True)
+        mixed.backward(dmixed)
+        opt_g.step()
+
+        state.step += 1
+        return {"loss_d": loss_d.detach(), "loss_g": loss_g.detach(),
+                **_no_pck(loss_d.device)}
+
+    step.last_mix_weights = None
+    return step
+
+
+def bottomup_infer_fn(model, cfg, flip_pairs, max_peaks: int = 30,
+                      scales=(1.0,)):
+    """Bottom-up inference of an eval-mode model: `infer(image) -> (heat,
+    tags, peaks)` for NHWC normalized images (B, S, S, 3). The output
+    scales are aggregated at the 1/2 resolution (`aggregate_heatmaps`);
+    with TEST.FLIP_TEST the flipped pass's heatmaps are flipped back and
+    averaged, and its tags flipped back and stacked as a second tag
+    dimension (T=2, the published flip protocol). `scales` beyond (1.0,)
+    is the published multi-scale test (e.g. [0.5, 1, 2]): scale 1 runs
+    first and fixes the aggregation resolution; every other scale's input
+    is resized on the device and its flip-averaged heatmaps brought to that
+    resolution and averaged in; the tags come from scale 1 only.
+    Returns heat (B, J, h, w), tags (B, J, h, w[, 2]) and the
+    `top_k_peaks` dict, all f32 for a bf16 model."""
+    flip_test = cfg.TEST.FLIP_TEST
+    pairs = tuple(tuple(p) for p in flip_pairs)
+    input_size = int(cfg.MODEL.IMAGE_SIZE[0])
+    scales = tuple(float(s) for s in scales)
+    assert 1.0 in scales, "the base test scale 1 is required"
+
+    def one_scale(x, target_hw, with_tags: bool):
+        outs = model(x)
+        hw = target_hw or (outs[-1].shape[2], outs[-1].shape[3])
+        heat, tags = aggregate_heatmaps(outs, hw)
+        if flip_test:
+            heat_f, tags_f = aggregate_heatmaps(model(x.flip(3)), hw)
+            heat = (heat + flip_back(heat_f, pairs)) * 0.5
+            if with_tags:
+                tags = torch.stack([tags, flip_back(tags_f, pairs)], dim=-1)
+        return heat, hw, (tags if with_tags else None)
+
+    @torch.no_grad()
+    def infer(image):
+        x = image.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        heat, target_hw, tags = one_scale(x, None, True)
+        if len(scales) > 1:
+            heat_sum = heat
+            for s in sorted(scales, reverse=True):
+                if s == 1.0:
+                    continue
+                size = int(input_size * s)
+                h_s, _, _ = one_scale(resize_bilinear(x, (size, size)),
+                                      target_hw, False)
+                heat_sum = heat_sum + h_s
+            heat = heat_sum / float(len(scales))
+        return heat, tags, top_k_peaks(heat, tags, k=max_peaks)
+
+    return infer
+
+
+def make_bottomup_eval_step(model, cfg, flip_pairs, max_peaks: int = 30,
+                            scales=(1.0,)):
+    """`step(batch) -> (heat, tags, peaks)` of `bottomup_infer_fn` on
+    batch["image"]."""
+    infer = bottomup_infer_fn(model, cfg, flip_pairs, max_peaks, scales)
+
+    def step(batch):
+        return infer(batch["image"])
+
     return step

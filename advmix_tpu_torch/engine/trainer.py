@@ -11,6 +11,15 @@ DEBUG.DEBUG (steps built with `debug=True`) both loops dump joint-overlay
 and heatmap grids (`utils/vis.py`) every PRINT_FREQ batches into
 `output_dir_of(cfg)`, and read the debug outputs back only on those batches
 (`lib/core/function.py:92-95, 194-197, 301-316`).
+
+Bottom-up (HigherHRNet): `make_bottomup_preprocessor` normalizes the
+whole-image crops (or synthesizes the AdvMix views) and hands the joints
+and the valid mask on, the targets being made inside the step;
+`train_epoch_bottomup` runs an epoch of it; `validate_bottomup` runs the
+eval step (peaks on the device), groups on the host
+(`evaluation/grouping.py`), projects the people back through the inverse
+affine and scores them with the COCO keypoint AP
+(`advmix_tpu/engine/trainer.py:445-650`).
 """
 
 from __future__ import annotations
@@ -334,3 +343,156 @@ def validate(cfg, eval_step, prep_fn, dataset, loader, output_dir: str,
     )
     print_name_value(logger, name_values, cfg.MODEL.NAME)
     return name_values, perf
+
+
+# ---------------------------------------------------------------------------
+# Bottom-up (HigherHRNet)
+# ---------------------------------------------------------------------------
+
+def make_bottomup_preprocessor(cfg, advmix: bool, device: torch.device):
+    """`prep(raw, generator)`: uint8 whole-image crops (B, S, S, 3) ->
+    normalized NCHW `image`, or the AdvMix `views` at the training compute
+    dtype; `joints`, `joints_vis` and an optional `mask` pass through."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
+                        device=device).view(1, 3, 1, 1) * 255.0
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
+                       device=device).view(1, 3, 1, 1) * 255.0
+    view_dtype = (torch.bfloat16 if str(cfg.TRAIN.DTYPE) == "bfloat16"
+                  else None)
+
+    @torch.no_grad()
+    def prep(raw, generator):
+        img = raw["image"].to(torch.float32).permute(0, 3, 1, 2)
+        out = {"joints": raw["joints"], "joints_vis": raw["joints_vis"]}
+        if advmix:
+            out["views"] = make_advmix_views(img, generator,
+                                             out_dtype=view_dtype,
+                                             compute_dtype=view_dtype)
+        else:
+            out["image"] = ((img - mean) / std).contiguous()
+        if raw.get("mask") is not None:
+            out["mask"] = raw["mask"]
+        return out
+
+    return prep
+
+
+def train_epoch_bottomup(cfg, step_fn, prep_fn, loader, device: torch.device,
+                         epoch: int, generator: torch.Generator,
+                         advmix: bool = False):
+    """One bottom-up epoch (the joints stay multi-person; PCK is not
+    defined). Returns the per-iteration metrics as floats."""
+    batch_time = AverageMeter()
+    losses = AverageMeter()
+    history = []
+    end = time.time()
+    for i, host_batch in enumerate(loader):
+        raw = {k: to_device(host_batch[k], device)
+               for k in ("image", "joints", "joints_vis", "mask")
+               if k in host_batch}
+        metrics = {k: float(v) for k, v in
+                   step_fn(prep_fn(raw, generator)).items()}
+        history.append(metrics)
+        n = host_batch["_n"]
+        losses.update(metrics["loss_d" if advmix else "loss"], n)
+        batch_time.update(time.time() - end)
+        end = time.time()
+        if i % cfg.PRINT_FREQ == 0:
+            logger.info(
+                f"Epoch: [{epoch}][{i}/{len(loader)}]\t"
+                f"Time {batch_time.val:.3f}s ({batch_time.avg:.3f}s)\t"
+                f"Speed {n / max(batch_time.val, 1e-9):.1f} samples/s\t"
+                f"Loss {losses.val:.5f} ({losses.avg:.5f})")
+    return history
+
+
+def validate_bottomup(cfg, eval_step, dataset, loader, output_dir: str,
+                      device: torch.device, detection_thresh: float = 0.1,
+                      tag_thresh: float = 1.0, corruption: str = "",
+                      severity: int = 0, stats: dict | None = None):
+    """Bottom-up validation: the eval step's forward and peaks on the
+    device (after an on-the-fly `corruption` at `severity` 1..5, seeded 1
+    every batch as the top-down sweep's), AE grouping on the host, the
+    inverse affine back to image coordinates, a COCO results json and the
+    OKS AP. Returns (name_values, AP). `stats`, if given, receives the
+    pass's host-clock seconds: `device_s` (step to read-back), `group_s`,
+    `eval_s`, and the counts `images` and `groups`."""
+    import json
+
+    from ..evaluation.cocoeval_np import STATS_NAMES, COCOKeypointEval
+    from ..evaluation.grouping import parse_bottomup
+    from ..ops.transforms import get_affine_transform
+    from collections import OrderedDict
+
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
+                        device=device) * 255.0
+    # the reciprocal, as XLA compiles the JAX package's division by the
+    # constant: the same f32 inputs, so grouping sees the same maps
+    inv_std = 1.0 / (torch.tensor(IMAGENET_STD, dtype=torch.float32,
+                                  device=device) * 255.0)
+    corrupted = corruption not in (None, "", "clean")
+    results = []
+    t = dict(device_s=0.0, group_s=0.0, eval_s=0.0, images=0, groups=0)
+    for host_batch in loader:
+        t0 = time.perf_counter()
+        img = to_device(host_batch["image"], device).to(torch.float32)
+        if corrupted:
+            img = corrupt(img, corruption, severity,
+                          torch.Generator(img.device).manual_seed(1),
+                          exact_render=True)
+        heat, tags, peaks = eval_step({"image": (img - mean) * inv_std})
+        heat = heat.cpu().numpy()
+        tags = tags.cpu().numpy()
+        peaks = {k: v.cpu().numpy() for k, v in peaks.items()}
+        t1 = time.perf_counter()
+        t["device_s"] += t1 - t0
+        hm_h, hm_w = heat.shape[2], heat.shape[3]
+        for i in range(host_batch["_n"]):
+            # (J, H, W[, T]) -> the grouping's (H, W, J[, T]), as views
+            people, scores = parse_bottomup(
+                heat[i].transpose(1, 2, 0), np.moveaxis(tags[i], 0, 2),
+                {k: v[i] for k, v in peaks.items()}, detection_thresh,
+                tag_thresh)
+            t["images"] += 1
+            t["groups"] += len(people)
+            if len(people) == 0:
+                continue
+            inv = get_affine_transform(host_batch["center"][i],
+                                       host_batch["scale"][i], 0,
+                                       (hm_w, hm_h), inv=True)
+            image_id = int(str(host_batch["image_path"][i])[-16:-4])
+            for p, sc in zip(people, scores):
+                kps = np.zeros(dataset.num_joints * 3)
+                xy = np.concatenate([p[:, :2], np.ones((p.shape[0], 1))],
+                                    axis=1) @ inv.T
+                kps[0::3] = xy[:, 0]
+                kps[1::3] = xy[:, 1]
+                kps[2::3] = p[:, 2]
+                results.append(dict(image_id=image_id, category_id=1,
+                                    keypoints=[float(v) for v in kps],
+                                    score=float(sc)))
+        t["group_s"] += time.perf_counter() - t1
+
+    res_folder = os.path.join(output_dir, "results")
+    os.makedirs(res_folder, exist_ok=True)
+    res_file = os.path.join(
+        res_folder, f"keypoints_{dataset.image_set}_results_bu.json")
+    with open(res_file, "w") as f:
+        json.dump(results, f)
+
+    if "test" in dataset.image_set:
+        name_value, perf = OrderedDict([("Null", 0)]), 0
+    else:
+        t0 = time.perf_counter()
+        eval_stats = COCOKeypointEval(dataset.ann_file, results).run()
+        t["eval_s"] = time.perf_counter() - t0
+        name_value = OrderedDict(zip(STATS_NAMES,
+                                     [float(x) for x in eval_stats]))
+        print_name_value(logger, name_value, cfg.MODEL.NAME)
+        perf = name_value["AP"]
+    logger.info("=> bottom-up pass: %d images, %d groups; device %.3f s, "
+                "grouping %.3f s, COCO eval %.3f s", t["images"],
+                t["groups"], t["device_s"], t["group_s"], t["eval_s"])
+    if stats is not None:
+        stats.update(t)
+    return name_value, perf

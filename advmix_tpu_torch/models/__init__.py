@@ -1,6 +1,6 @@
 """Model registry, initialization and weight loading.
 
-Port of `advmix_tpu/models/__init__.py` for the top-down models. The
+Port of `advmix_tpu/models/__init__.py`. The
 reference resolves architectures with `eval('models.'+cfg.MODEL.NAME+...)`
 (`tools/train.py:60`); here an explicit registry does.
 """
@@ -13,13 +13,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import pose_hrnet, pose_resnet
+from . import higher_hrnet, pose_hrnet, pose_resnet
 from .convert import jax_to_torch_state_dict, jax_unet_to_torch_state_dict
 from .unet import UnetGenerator, get_generator  # noqa: F401
 
 _REGISTRY = {
     "pose_resnet": pose_resnet.get_pose_net,
     "pose_hrnet": pose_hrnet.get_pose_net,
+    "pose_higher_hrnet": higher_hrnet.get_pose_net,
 }
 
 

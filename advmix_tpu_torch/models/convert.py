@@ -12,6 +12,13 @@ inverse of `advmix_tpu/models/torch_convert.py:147-178`:
 - BN `scale`/`bias` -> `weight`/`bias`; `batch_stats` `mean`/`var` ->
   `running_mean`/`running_var`.
 
+HigherHRNet's modules carry the official checkpoint's nested names, which
+`flax_module_name` maps explicitly: `deconv_layers.<i>.0.0` / `.0.1` are
+the JAX package's `deconv_layers_<i>_deconv` / `_bn`, and
+`deconv_layers.<i>.<j>.0.<name>` (j >= 1) its
+`deconv_layers_<i>_block_<j-1>_<name>` (`higher_hrnet.py:78-95`); its trunk
+sits under `trunk/` in the JAX tree, whose leaf names are HRNet's.
+
 The scanned layout (MODEL.EXTRA.USE_SCAN) is unstacked first, with this
 module's own copy of the JAX package's unstacking rules
 (`torch_convert.py:213-301`): `stage<si>_scan/mod/...` carries a module
@@ -21,6 +28,8 @@ and stage 4's last module is never scanned.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -92,6 +101,24 @@ def unstack_scanned(flat: dict) -> dict:
     return out
 
 
+_HIGHER_DECONV = re.compile(r"^deconv_layers\.(\d+)\.0\.([01])$")
+_HIGHER_BLOCK = re.compile(r"^deconv_layers\.(\d+)\.([1-9]\d*)\.0\.(.+)$")
+
+
+def flax_module_name(mod_path: str) -> str:
+    """The JAX package's leaf-module name of the torch module `mod_path`:
+    the path with '.' replaced by '_', except for HigherHRNet's nested
+    deconv stage."""
+    m = _HIGHER_DECONV.match(mod_path)
+    if m:
+        return f"deconv_layers_{m[1]}_" + ("deconv" if m[2] == "0" else "bn")
+    m = _HIGHER_BLOCK.match(mod_path)
+    if m:
+        return (f"deconv_layers_{m[1]}_block_{int(m[2]) - 1}_"
+                + m[3].replace(".", "_"))
+    return mod_path.replace(".", "_")
+
+
 _LEAVES = {
     # torch leaf -> (collection, flax leaf) by the kind of flax module
     ("conv", "weight"): ("params", "kernel"),
@@ -119,7 +146,7 @@ def jax_to_torch_state_dict(flat: dict, model: nn.Module) -> dict:
             state[tkey] = cur.clone()
             continue
         mod_path, _, leaf = tkey.rpartition(".")
-        mod = mod_path.replace(".", "_")
+        mod = flax_module_name(mod_path)
         entry = by_module.get(mod, {})
         kind = "conv" if ("params", "kernel") in entry else "bn"
         src = _LEAVES.get((kind, leaf))
@@ -209,6 +236,6 @@ def torch_to_jax_leaves(model: nn.Module) -> dict:
         arr = val.detach().cpu().numpy()
         if fleaf == "kernel":
             arr = np.transpose(arr, (2, 3, 1, 0))
-        mod = unet.get(mod_path, mod_path.replace(".", "_"))
+        mod = unet.get(mod_path, flax_module_name(mod_path))
         out[f"{coll}/{mod}/{fleaf}"] = arr
     return out

@@ -136,7 +136,9 @@ class PoseHighResolutionNet(nn.Module):
         self.final_layer = conv(pre[0], num_joints, final_conv_kernel, 1, pad,
                                 bias=True)
 
-    def forward(self, x):
+    def stem_and_stages(self, x):
+        """The highest-resolution branch's features, in the compute
+        dtype: everything before `final_layer`."""
         x = x.to(compute_dtype_of(self, self.conv1))
         x = torch.relu(self.bn1(self.conv1(x)))
         x = torch.relu(self.bn2(self.conv2(x)))
@@ -149,7 +151,10 @@ class PoseHighResolutionNet(nn.Module):
                 for i, layer in enumerate(trans)
             ]
             xs = getattr(self, f"stage{si}")(xs)
-        out = self.final_layer(xs[0])
+        return xs[0]
+
+    def forward(self, x):
+        out = self.final_layer(self.stem_and_stages(x))
         return out.to(torch.promote_types(torch.float32, out.dtype))
 
 

@@ -10,7 +10,9 @@ weights,
 timed with CUDA events after warm-up. Prints one JSON line with the time of
 the view synthesis alone, of the step alone and of both, the images per
 second of both, and the peak device memory. It raises without a card: a CPU
-time is not a measurement of the port.
+time is not a measurement of the port. A bottom-up YAML (pose_higher_hrnet,
+`bench.py:255-275`) benches the bottom-up AdvMix step on whole 512x512
+images of 10 people each, joints uniform over the image, all visible.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ import torch
 
 from ..config import get_default_config
 from ..engine.state import create_advmix_state
-from ..engine.steps import make_advmix_step
-from ..engine.trainer import make_preprocessor
+from ..engine.steps import make_advmix_step, make_bottomup_advmix_step
+from ..engine.trainer import make_bottomup_preprocessor, make_preprocessor
 from ..models import get_generator, get_pose_net
 from ..utils.device import resolve_device
 
@@ -58,13 +60,25 @@ def make_advmix_workload(cfg, device: torch.device, batch_size: int,
     gen = torch.Generator().manual_seed(seed)
     model = get_pose_net(cfg)
     state = create_advmix_state(cfg, model, get_generator(), device, dtype)
-    step = make_advmix_step(state, cfg, alpha=0.1, adv_loss_weight=1.0)
-    prep = make_preprocessor(cfg, advmix=True, device=device)
     w, h = cfg.MODEL.IMAGE_SIZE
     j = cfg.MODEL.NUM_JOINTS
+    image = torch.randint(0, 256, (batch_size, h, w, 3), dtype=torch.uint8,
+                          generator=gen).to(device)
+    if cfg.MODEL.NAME == "pose_higher_hrnet":
+        step = make_bottomup_advmix_step(state, cfg, alpha=0.1,
+                                         adv_loss_weight=1.0)
+        prep = make_bottomup_preprocessor(cfg, advmix=True, device=device)
+        people = 10
+        raw = {"image": image,
+               "joints": (torch.rand(batch_size, people, j, 2, generator=gen)
+                          * (min(w, h) - 2.0)).to(device),
+               "joints_vis": torch.ones(batch_size, people, j,
+                                        device=device)}
+        return state, step, prep, raw, gen
+    step = make_advmix_step(state, cfg, alpha=0.1, adv_loss_weight=1.0)
+    prep = make_preprocessor(cfg, advmix=True, device=device)
     raw = {
-        "image": torch.randint(0, 256, (batch_size, h, w, 3),
-                               dtype=torch.uint8, generator=gen).to(device),
+        "image": image,
         "joints": (torch.rand(batch_size, j, 2, generator=gen)
                    * torch.tensor([w - 1.0, h - 1.0])).to(device),
         "joints_vis": (torch.rand(batch_size, j, generator=gen)

@@ -5,17 +5,20 @@ severities 1..5, aggregated into mPC and rPC.
         [--on_the_fly] [--distortions a,b] [--all_corruptions] \
         [--device cpu] [KEY VALUE ...]
 
-Port of `tools/test_corruption.py:46-334` (reference `tools/test_corruption.py`)
-for the top-down models: build and load the model once (TEST.MODEL_FILE, a
+Port of `tools/test_corruption.py:46-334` (reference `tools/test_corruption.py`):
+build and load the model once (TEST.MODEL_FILE, a
 reference `.pth` or an `.npz` of JAX variables, as `tools/validate.py`
-loads it; without one the random init is evaluated, with a warning), build
+loads it; without one the random init is evaluated, with a warning; a
+directory stops the run), build
 the eval step once, evaluate clean + each corruption x severities 1..5,
 append one line per pass to robust_C.val, and write a CSV with the clean AP,
 the per-corruption means, mPC (the mean over the 15 benchmark corruptions
 only) and rAP = mPC / clean; on an MPII YAML the score is PCKh Mean and the
 CSV's columns are clean_mean, mean_corrupted_mean and rmean.
 `--all_corruptions` also sweeps the 4 holdout types; `--distortions` sweeps
-a subset.
+a subset. A bottom-up YAML (pose_higher_hrnet) evaluates every pass with
+`validate_bottomup`, which corrupts the whole input image
+(:130,185-188,249-256).
 
 With `--on_the_fly` the crops are corrupted on the device in the
 exact-render form (`ops/corruptions.py`): one dataset of clean crops, whose
@@ -38,14 +41,16 @@ import torch
 from ..config import get_default_config, update_config
 from ..data import CachedLoader, Loader
 from ..data import build_dataset as default_build_dataset
-from ..engine.steps import make_eval_step
+from ..engine import trainer as trainer_lib
+from ..engine.steps import make_bottomup_eval_step, make_eval_step
 from ..engine.trainer import make_eval_preprocessor, validate
-from ..models import get_pose_net, load_model_file
+from ..models import get_pose_net
 from ..models.layers import set_compute_dtype
 from ..ops.corruptions import BENCHMARK_CORRUPTIONS, HOLDOUT_CORRUPTIONS
 from ..utils.device import resolve_device
 from ..utils.logging import create_logger
 from ._parse import parse_args, reject_later_slices
+from .validate import load_test_model_file
 
 BENCHMARK_15 = list(BENCHMARK_CORRUPTIONS)
 HOLDOUT_4 = list(HOLDOUT_CORRUPTIONS)
@@ -86,13 +91,7 @@ def main(argv=None, build_dataset=default_build_dataset):
 
     # build and load the model once (reference val_model_init, :38-58)
     model = get_pose_net(cfg)
-    model_file = cfg.TEST.MODEL_FILE or os.path.join(output_dir, "final_state")
-    if os.path.isfile(model_file):
-        load_model_file(model, model_file)
-        logger.info(f"=> loaded model {model_file}")
-    else:
-        logger.warning(
-            f"=> no model file at {model_file}; evaluating random init")
+    load_test_model_file(model, cfg, output_dir, logger)
     model = set_compute_dtype(model.to(device).eval(), dtype)
 
     def dataset_for(corruption: str, severity0: int, robust: bool):
@@ -105,7 +104,13 @@ def main(argv=None, build_dataset=default_build_dataset):
 
     # the eval step is the same for the whole sweep: build it once
     first = dataset_for("clean", 0, False)
-    eval_step = make_eval_step(model, cfg, first.flip_pairs)
+    bottomup = cfg.MODEL.NAME == "pose_higher_hrnet"
+    if bottomup:
+        eval_step = make_bottomup_eval_step(
+            model, cfg, first.flip_pairs,
+            scales=tuple(cfg.TEST.SCALE_FACTOR))
+    else:
+        eval_step = make_eval_step(model, cfg, first.flip_pairs)
     batch = cfg.TEST.BATCH_SIZE_PER_GPU
     # on the fly, every pass reads the same clean crops and the device
     # corrupts them: the host's work is the same on every pass
@@ -125,12 +130,16 @@ def main(argv=None, build_dataset=default_build_dataset):
         cfg.TEST.SEVERITY = severity0
         cfg.TEST.TEST_ROBUST = True
         cfg.freeze()
-        prep = make_eval_preprocessor(
-            cfg, device,
-            corruption=corruption if extra_args.on_the_fly else None,
-            severity=severity0 + 1)
-        name_values, perf = validate(cfg, eval_step, prep, dataset, loader,
-                                     output_dir, device)
+        on_device = corruption if extra_args.on_the_fly else None
+        if bottomup:
+            name_values, perf = trainer_lib.validate_bottomup(
+                cfg, eval_step, dataset, loader, output_dir, device,
+                corruption=on_device, severity=severity0 + 1)
+        else:
+            prep = make_eval_preprocessor(cfg, device, corruption=on_device,
+                                          severity=severity0 + 1)
+            name_values, perf = validate(cfg, eval_step, prep, dataset,
+                                         loader, output_dir, device)
         with open(os.path.join(output_dir, "robust_C.val"), "a") as rec:
             rec.write(f"{corruption}_{severity0}:\t")
             for k, v in name_values.items():

@@ -1,10 +1,11 @@
-"""Training entry point: standard top-down training and AdvMix.
+"""Training entry point: standard and AdvMix training, top-down and
+bottom-up.
 
     python -m advmix_tpu_torch.tools.train --cfg <yaml> [--advmix \
         --sample_times 3] [--random_corruption] [--stylize_image \
         [--sp_style 1]] [--device cpu] [KEY VALUE ...]
 
-Port of `tools/train.py` for the top-down branches: the model (and, under
+Port of `tools/train.py`: the model (and, under
 --advmix, the teacher copy and the UNet generator, :64-69), datasets and
 loaders, the optimizers with their per-epoch MultiStepLR (:184-186,
 272-281), fine-tune loading (--load_from_D / --load_from_G), AUTO_RESUME
@@ -14,6 +15,10 @@ every epoch (:283-328), and the final export of the weights (:331-337).
 under `<dirname(ROOT)>/stylize_image_<DATASET>` (:145-163), and with it
 `--sp_style` exempts the stylized samples from AutoAugment and GridMask;
 DEBUG.DEBUG dumps image grids in training and validation (`utils/vis.py`).
+MODEL.NAME pose_higher_hrnet trains bottom-up (:74,150-160,207-208,245,
+297-301,349-363): the bottom-up steps of `engine/steps.py`, whole-image
+samples warped on the host (DATASET.DEVICE_WARP does not apply), and the
+bottom-up validation after every epoch.
 It runs on the CUDA device, and raises without one unless `--device cpu`
 is given.
 """
@@ -54,6 +59,16 @@ def main(argv=None, build_dataset=default_build_dataset):
     if args.sp_style and not args.stylize_image:
         raise SystemExit("--sp_style exempts the stylized samples of "
                          "--stylize_image: give both")
+    bottomup = cfg.MODEL.NAME == "pose_higher_hrnet"
+    if bottomup:
+        # the JAX package's bottom-up path ignores these; say so instead
+        top_down_only = [name for name, on in (
+            ("--random_corruption", args.random_corruption),
+            ("--sp_style", args.sp_style),
+            ("DEBUG.DEBUG", cfg.DEBUG.DEBUG)) if on]
+        if top_down_only:
+            raise SystemExit(f"{', '.join(top_down_only)}: top-down only; "
+                             "the bottom-up path has no such option")
 
     logger, output_dir, _ = create_logger(cfg, args.cfg, "train")
     logger.info(pprint.pformat(vars(args)))
@@ -90,13 +105,20 @@ def main(argv=None, build_dataset=default_build_dataset):
         # the teacher is a copy of D as loaded above
         state = state_lib.create_advmix_state(cfg, model, model_g, device,
                                               dtype)
-        step_fn = steps.make_advmix_step(
-            state, cfg, alpha=args.alpha,
-            adv_loss_weight=args.adv_loss_weight, num_views=args.sample_times,
-            debug=debug)
+        if bottomup:
+            step_fn = steps.make_bottomup_advmix_step(
+                state, cfg, alpha=args.alpha,
+                adv_loss_weight=args.adv_loss_weight,
+                num_views=args.sample_times)
+        else:
+            step_fn = steps.make_advmix_step(
+                state, cfg, alpha=args.alpha,
+                adv_loss_weight=args.adv_loss_weight,
+                num_views=args.sample_times, debug=debug)
     else:
         state = state_lib.create_pose_state(cfg, model, device, dtype)
-        step_fn = steps.make_train_step(state, cfg, debug=debug)
+        step_fn = (steps.make_bottomup_step(state, cfg) if bottomup
+                   else steps.make_train_step(state, cfg, debug=debug))
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"=> {cfg.MODEL.NAME}: {n_params} parameters")
 
@@ -110,7 +132,8 @@ def main(argv=None, build_dataset=default_build_dataset):
     # MINI_COCO debug mode validates on the train set (tools/train.py:127-134)
     valid_dataset = build_dataset(
         cfg, False, cfg.DATASET.TRAIN_SET if cfg.DATASET.MINI_COCO else None)
-    device_warp = bool(cfg.DATASET.DEVICE_WARP)
+    # a bottom-up sample is the whole image, warped on the host
+    device_warp = bool(cfg.DATASET.DEVICE_WARP) and not bottomup
     train_loader = Loader(train_dataset, cfg.TRAIN.BATCH_SIZE_PER_GPU,
                           shuffle=cfg.TRAIN.SHUFFLE, drop_last=True,
                           raw_mode=device_warp,
@@ -125,16 +148,23 @@ def main(argv=None, build_dataset=default_build_dataset):
     logger.info(f"=> {len(train_dataset)} train / {len(valid_dataset)} val "
                 "samples")
 
-    prep_train = trainer_lib.make_preprocessor(
-        cfg, advmix=advmix, device=device, device_warp=device_warp,
-        random_corruption=args.random_corruption,
-        sp_style=bool(args.sp_style and args.stylize_image))
+    if bottomup:
+        prep_train = trainer_lib.make_bottomup_preprocessor(cfg, advmix,
+                                                            device)
+        eval_step = steps.make_bottomup_eval_step(
+            model, cfg, valid_dataset.flip_pairs,
+            scales=tuple(cfg.TEST.SCALE_FACTOR))
+    else:
+        prep_train = trainer_lib.make_preprocessor(
+            cfg, advmix=advmix, device=device, device_warp=device_warp,
+            random_corruption=args.random_corruption,
+            sp_style=bool(args.sp_style and args.stylize_image))
+        prep_eval = trainer_lib.make_eval_preprocessor(cfg, device)
+        eval_step = steps.make_eval_step(model, cfg, valid_dataset.flip_pairs,
+                                         debug=debug)
     if args.random_corruption:
         logger.info("=> --random_corruption: a random benchmark corruption "
                     "per training image")
-    prep_eval = trainer_lib.make_eval_preprocessor(cfg, device)
-    eval_step = steps.make_eval_step(model, cfg, valid_dataset.flip_pairs,
-                                     debug=debug)
     debug_dir = trainer_lib.output_dir_of(cfg) if debug else None
 
     ckpt = CheckpointManager(output_dir)
@@ -156,15 +186,21 @@ def main(argv=None, build_dataset=default_build_dataset):
             lr = epoch_lr_update(opt, cfg, epoch)
         logger.info(f"=> epoch {epoch} lr {lr:.6g}")
         train_loader.set_epoch(epoch)
-        history.append(trainer_lib.train_epoch(
-            cfg, step_fn, prep_train, train_loader, device, epoch, generator,
-            advmix=advmix))
+        train = (trainer_lib.train_epoch_bottomup if bottomup
+                 else trainer_lib.train_epoch)
+        history.append(train(cfg, step_fn, prep_train, train_loader, device,
+                             epoch, generator, advmix=advmix))
 
         model.eval()
-        _, perf = trainer_lib.validate(cfg, eval_step, prep_eval,
-                                       valid_dataset, valid_loader,
-                                       output_dir, device,
-                                       debug_out_dir=debug_dir)
+        if bottomup:
+            _, perf = trainer_lib.validate_bottomup(
+                cfg, eval_step, valid_dataset, valid_loader, output_dir,
+                device)
+        else:
+            _, perf = trainer_lib.validate(cfg, eval_step, prep_eval,
+                                           valid_dataset, valid_loader,
+                                           output_dir, device,
+                                           debug_out_dir=debug_dir)
         is_best = perf > best_perf
         best_perf = max(perf, best_perf)
         logger.info(f"=> saving checkpoint to {output_dir} (best: {is_best})")

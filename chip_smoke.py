@@ -70,13 +70,29 @@ Phases, each fatal on failure:
    step's heatmaps and on peaked (128, 16, 64, 64) maps (within 1e-3
    heatmap px), timed beside the decode kernel, and the two eval steps
    timed in turns;
-12. print a `kernels` JSON line and, last, the device JSON line.
+12. bottom-up: experiments/coco/higher_hrnet/w32_512_advmix.yaml
+   (HigherHRNet-W32 512x512, bf16) on synthetic COCO sets written here
+   (JPEGs with COCO names, 1-6 people, a crowd RLE and a zero-keypoint
+   person per image), seeded weights with BN and heads calibrated (random
+   heads make ~500 groups per image); `tools/validate.main` at
+   TEST.SCALE_FACTOR [1] and [0.5, 1, 2] and the OCHuman YAML through its
+   alias (grouping s/image, groups/image, COCO-eval s; the eval step timed
+   and profiled); the float64 infer (both scale settings) and the float64
+   AdvMix step on the card against the CPU; `tools/train.main --advmix
+   --sample_times 3` (3 iterations of batch 12) and a plain epoch of 2;
+   the AdvMix iteration timed and profiled at batch 12 and `tools.bench`;
+   `tools/test_corruption.main --on_the_fly` with zoom_blur and
+   defocus_blur over one batch of 8 (11 passes). The three kernels launch
+   0 times on every bottom-up path, and the phase checks that;
+13. print a `kernels` JSON line and, last, the device JSON line.
 
 It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -1071,7 +1087,7 @@ def corruption_phase(dev) -> dict:
 # phases 7 and 8: the sweep and --random_corruption training
 # ---------------------------------------------------------------------------
 
-def run_sweep(argv, build, kernel_fns) -> dict:
+def run_sweep(argv, build, kernel_fns, n_pass: int = 1 + 15 * 5) -> dict:
     """`tools/test_corruption.main(argv)`, each pass timed by the host clock
     up to a sync at its end, and each corruption by CUDA events on the
     stream, read after the sweep (no sync added to a pass). Returns the
@@ -1082,13 +1098,16 @@ def run_sweep(argv, build, kernel_fns) -> dict:
 
     pass_s, corrupt_ev = [], []
     real_validate, real_corrupt = sweep_tool.validate, trainer_mod.corrupt
+    real_bottomup = trainer_mod.validate_bottomup
 
-    def timed_validate(*a, **k):
-        t0 = time.perf_counter()
-        res = real_validate(*a, **k)
-        torch.cuda.synchronize()
-        pass_s.append(time.perf_counter() - t0)
-        return res
+    def timed(fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            pass_s.append(time.perf_counter() - t0)
+            return res
+        return run
 
     def timed_corrupt(*a, **k):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1098,7 +1117,9 @@ def run_sweep(argv, build, kernel_fns) -> dict:
         corrupt_ev.append(ev)
         return res
 
-    sweep_tool.validate, trainer_mod.corrupt = timed_validate, timed_corrupt
+    sweep_tool.validate, trainer_mod.corrupt = (timed(real_validate),
+                                                timed_corrupt)
+    trainer_mod.validate_bottomup = timed(real_bottomup)
     for fn in kernel_fns:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1109,10 +1130,10 @@ def run_sweep(argv, build, kernel_fns) -> dict:
             result = sweep_tool.main(argv, build_dataset=build)
     finally:
         sweep_tool.validate, trainer_mod.corrupt = real_validate, real_corrupt
+        trainer_mod.validate_bottomup = real_bottomup
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernel_fns}
     torch.cuda.synchronize()
-    n_pass = 1 + 15 * 5
     if len(result["runs"]) != n_pass or len(pass_s) != n_pass:
         raise AssertionError(f"the sweep ran {len(result['runs'])} passes")
     with open(os.path.join(result["output_dir"], "robust_C.val")) as f:
@@ -1130,7 +1151,8 @@ def log_sweep_times(tag: str, sw: dict) -> None:
     pass_s, corrupt_s = sw["pass_s"], sw["corrupt_s"]
     steady = pass_s[1:]
     log(f"[{tag}] s/pass: first (clean, cuDNN autotuning) {pass_s[0]:.3f}, "
-        f"the other 75 mean {mean(steady):.3f} (min {min(steady):.3f}, max "
+        f"the other {len(steady)} mean {mean(steady):.3f} (min "
+        f"{min(steady):.3f}, max "
         f"{max(steady):.3f}); corruption {sum(corrupt_s):.3f} s in all = "
         f"{100 * sum(corrupt_s) / sum(steady):.1f}% of the corrupted passes "
         f"({mean(corrupt_s) * 1e3:.1f} ms per pass: CUDA events around "
@@ -1745,6 +1767,603 @@ def soft_argmax_phase(dev, tmp: str, start_path: str, dataset_cls,
     return dict(launches=launches, times=times, step=step)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: bottom-up HigherHRNet-W32 512x512
+# ---------------------------------------------------------------------------
+
+HIGHER_CFG = os.path.join(HERE,
+                          "experiments/coco/higher_hrnet/w32_512_advmix.yaml")
+OCHUMAN_CFG = os.path.join(
+    HERE, "experiments/ochuman/higher_hrnet/w32_512_advmix.yaml")
+# val2017 for validate; train2017 and train24 make 3 and 2 iterations of
+# 12; val1 is what the training runs validate on (three steps move D's BN
+# statistics off the heads' calibration, and the maps then hold 120-230
+# groups per image, 6-10 s of host grouping each); val8 the sweep's batch
+BU_SETS = {"val2017": 16, "train2017": 36, "train24": 24, "val1": 1,
+           "val8": 8}
+BU_PEAKS_PER_MAP = 4  # the heads' calibration: peaks above 0.1 per map
+BU_TAG_SPREAD = 0.1
+BU_SWEEP = ("zoom_blur", "defocus_blur")
+BU_CHECK_SIZE = 256  # the float64 checks card vs CPU: input side
+
+
+def rle_string(mask: np.ndarray) -> str:
+    """pycocotools' compressed RLE string (mask.c rleToString) of a 0/1
+    (h, w) mask: column-major runs starting with zeros, each count after
+    the second delta-coded against the one two back, 5-bit groups."""
+    flat = np.asarray(mask, np.uint8).T.reshape(-1)
+    edges = np.flatnonzero(np.diff(flat)) + 1
+    runs = np.diff(np.concatenate([[0], edges, [flat.size]])).tolist()
+    counts = ([0] + runs) if flat[0] else runs
+    out = []
+    for i, c in enumerate(counts):
+        x = int(c) - (int(counts[i - 2]) if i > 2 else 0)
+        more = True
+        while more:
+            ch = x & 0x1F
+            x >>= 5
+            more = (x != -1) if (ch & 0x10) else (x != 0)
+            out.append(chr((ch | (0x20 if more else 0)) + 48))
+    return "".join(out)
+
+
+def write_bottomup_coco(root: str, image_set: str, n_images: int,
+                        rng) -> int:
+    """A COCO-format bottom-up set: JPEGs of seeded noise with COCO file
+    names (the image id is read from the name), 320..640 x 240..480, 1-6
+    annotated people each (3..17 labelled joints), and per image one crowd
+    region as a compressed RLE string and one zero-keypoint person as a
+    polygon, so that the training ignore mask is real. Returns the number
+    of annotated people."""
+    import cv2
+
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    os.makedirs(os.path.join(root, image_set), exist_ok=True)
+    images, anns, n_people = [], [], 0
+    for i in range(1, n_images + 1):
+        w, h = int(rng.randint(320, 641)), int(rng.randint(240, 481))
+        cv2.imwrite(os.path.join(root, image_set, "%012d.jpg" % i),
+                    rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+        images.append(dict(id=i, width=w, height=h,
+                           file_name="%012d.jpg" % i))
+        for _ in range(rng.randint(1, 7)):
+            bw, bh = rng.uniform(w / 6, w / 2), rng.uniform(h / 4, h * 0.8)
+            x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            kps = np.zeros((17, 3))
+            on = rng.permutation(17)[:rng.randint(3, 18)]
+            kps[on, 0] = x0 + rng.uniform(0, bw, len(on))
+            kps[on, 1] = y0 + rng.uniform(0, bh, len(on))
+            kps[on, 2] = rng.choice([1, 2], len(on))
+            anns.append(dict(image_id=i, category_id=1, iscrowd=0,
+                             keypoints=[float(v) for v in kps.reshape(-1)],
+                             num_keypoints=len(on), bbox=[x0, y0, bw, bh],
+                             area=bw * bh))
+            n_people += 1
+        crowd = np.zeros((h, w), np.uint8)
+        cy, cx = rng.randint(0, h // 2), rng.randint(0, w // 2)
+        crowd[cy:cy + h // 4, cx:cx + w // 5] = 1
+        anns.append(dict(image_id=i, category_id=1, iscrowd=1, keypoints=[],
+                         num_keypoints=0, bbox=[cx, cy, w // 5, h // 4],
+                         area=float(crowd.sum()),
+                         segmentation={"counts": rle_string(crowd),
+                                       "size": [h, w]}))
+        px, py = rng.uniform(w / 2, w - 40), rng.uniform(h / 2, h - 40)
+        anns.append(dict(image_id=i, category_id=1, iscrowd=0,
+                         keypoints=[0.0] * 51, num_keypoints=0,
+                         bbox=[px, py, 30, 30], area=600.0,
+                         segmentation=[[px, py, px + 30, py, px + 15,
+                                        py + 30]]))
+    for k, a in enumerate(anns, start=1):
+        a["id"] = k
+    with open(os.path.join(root, "annotations",
+                           f"person_keypoints_{image_set}.json"), "w") as f:
+        json.dump(dict(images=images, annotations=anns,
+                       categories=[dict(id=1, name="person")]), f)
+    return n_people
+
+
+def bottomup_batch(cfg, dev, image_set: str = "val2017", n: int = 8):
+    """The first eval batch of `image_set`: normalized NHWC images on
+    `dev`, as `validate_bottomup` hands them to the eval step."""
+    from advmix_tpu_torch.data import Loader, build_dataset
+    from advmix_tpu_torch.ops.augment import IMAGENET_MEAN, IMAGENET_STD
+
+    cfg = cfg.clone()
+    cfg.defrost()
+    cfg.DATASET.TEST_SET = image_set
+    cfg.freeze()
+    batches = iter(Loader(build_dataset(cfg, is_train=False), n))
+    host = next(batches)
+    batches.close()
+    img = torch.from_numpy(host["image"]).to(dev).float()
+    mean = torch.tensor(IMAGENET_MEAN, device=dev) * 255.0
+    std = torch.tensor(IMAGENET_STD, device=dev) * 255.0
+    return (img - mean) / std
+
+
+def calibrate_bottomup_heads(model, cfg, image, pairs) -> dict:
+    """Seeded weights stand in for a trained model, whose maps hold a few
+    people per image; a random head's hold noise: most of the 17 x 30 peaks
+    pass the 0.1 threshold, and random tags join no group, so nearly every
+    detection seeds one. Three times (the heatmaps of head 0 feed the
+    deconv module, so one shift moves head 1 again): shift the heatmap
+    channels' biases of both heads so that each joint's maps hold
+    BU_PEAKS_PER_MAP peaks above 0.1 on average after the 3x3 NMS, and
+    scale the tag
+    channels to a spread of BU_TAG_SPREAD. Returns the peaks above 0.1 per
+    map and the tag spread of the result."""
+    from advmix_tpu_torch.engine.steps import bottomup_infer_fn
+
+    j = cfg.MODEL.NUM_JOINTS
+    head0, head1 = model.final_layers[0], model.final_layers[1]
+    infer = bottomup_infer_fn(model, cfg, pairs,
+                              scales=tuple(cfg.TEST.SCALE_FACTOR))
+    for _ in range(3):
+        _, tags, peaks = infer(image)
+        b = peaks["val"].shape[0]
+        vals = peaks["val"].transpose(0, 1).reshape(j, -1).sort(
+            dim=1, descending=True).values  # (J, B * k)
+        delta = 0.1 - vals[:, BU_PEAKS_PER_MAP * b].to(head1.bias.dtype)
+        scale = BU_TAG_SPREAD / float(tags.std())
+        with torch.no_grad():
+            head0.bias[:j] += delta
+            head1.bias += delta
+            head0.weight[j:] *= scale
+            head0.bias[j:] *= scale
+    _, tags, peaks = infer(image)
+    return dict(peaks=float((peaks["val"] > 0.1).sum(-1).float().mean()),
+                tag_std=float(tags.std()))
+
+
+def dense_grouping(model, cfg, image, pairs, n_refine: int = 4) -> dict:
+    """What the maps of the heads before `calibrate_bottomup_heads` cost
+    the host grouping of one image (nothing caps the groups): the groups
+    and seconds of `group_peaks`, and the seconds of `refine_group` for the
+    first `n_refine` groups (each scans the whole map per missing joint;
+    the parse refines every group)."""
+    from advmix_tpu_torch.engine.steps import bottomup_infer_fn
+    from advmix_tpu_torch.evaluation.grouping import group_peaks, \
+        refine_group
+
+    infer = bottomup_infer_fn(model, cfg, pairs,
+                              scales=tuple(cfg.TEST.SCALE_FACTOR))
+    heat, tags, peaks = infer(image[:1])
+    heat = heat[0].cpu().numpy().transpose(1, 2, 0)
+    tags = np.moveaxis(tags[0].cpu().numpy(), 0, 2)
+    pk = {k: v[0].cpu().numpy() for k, v in peaks.items()}
+    t0 = time.perf_counter()
+    people = group_peaks(pk)
+    t1 = time.perf_counter()
+    for p in people[:n_refine]:
+        refine_group(p, heat, tags)
+    t2 = time.perf_counter()
+    return dict(groups=len(people), group_s=t1 - t0,
+                refine_s=(t2 - t1) / max(1, min(n_refine, len(people))),
+                above=int((pk["val"] > 0.1).sum()))
+
+
+def bottomup_infer_card_vs_cpu(model, cfg, image, pairs, dev) -> dict:
+    """`bottomup_infer_fn` (flip test, TEST.SCALE_FACTOR of `cfg`) of the
+    same weights in float64 on the card and on the CPU, on the same NHWC
+    images. Returns max |diff| over max |CPU| of the heatmaps, the tags
+    and the values of the peaks above 0.1, whether those peaks sit at the
+    same pixels, and their number."""
+    from advmix_tpu_torch.engine.steps import bottomup_infer_fn
+
+    out = {}
+    for key, where in (("cpu", torch.device("cpu")), ("card", dev)):
+        m = copy.deepcopy(model).to(where).double().eval()
+        heat, tags, peaks = bottomup_infer_fn(
+            m, cfg, pairs, scales=tuple(cfg.TEST.SCALE_FACTOR))(
+            image.to(where).double())
+        out[key] = (heat.cpu(), tags.cpu(), {k: v.cpu() for k, v in
+                                            peaks.items()})
+        del m
+    (h0, t0, p0), (h1, t1, p1) = out["cpu"], out["card"]
+    above = p0["val"] > 0.1
+    same = bool(torch.equal(above, p1["val"] > 0.1)
+                and torch.equal(p0["x"][above], p1["x"][above])
+                and torch.equal(p0["y"][above], p1["y"][above]))
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    return dict(heat=rel(h1, h0), tags=rel(t1, t0),
+                peak_val=rel(p1["val"][above], p0["val"][above]),
+                same_pixels=same, n_above=int(above.sum()),
+                shape=tuple(h0.shape))
+
+
+def bottomup_step_card_vs_cpu(cfg, start_path: str, dev,
+                              batch_size: int = 2) -> dict:
+    """One float64 `make_bottomup_advmix_step` (SGD) at full width and a
+    BU_CHECK_SIZE input on the card and on the CPU, from the same state and
+    the same views, 10 people per image, a valid mask of blocks. Returns
+    both sides' metrics and, for D and G, max |diff| of the parameters
+    after the step over max |update|."""
+    from advmix_tpu_torch.engine.state import create_advmix_state
+    from advmix_tpu_torch.engine.steps import make_bottomup_advmix_step
+    from advmix_tpu_torch.models import (get_generator, get_pose_net,
+                                         load_model_file)
+
+    cfg = cfg.clone()
+    cfg.defrost()
+    cfg.TRAIN.OPTIMIZER = "sgd"
+    cfg.TRAIN.LR = 0.01
+    cfg.TRAIN.DTYPE = "float32"
+    cfg.MODEL.IMAGE_SIZE = [BU_CHECK_SIZE, BU_CHECK_SIZE]
+    cfg.MODEL.HEATMAP_SIZE = [BU_CHECK_SIZE // 4, BU_CHECK_SIZE // 4]
+    cfg.freeze()
+    rng = np.random.RandomState(SEED + 40)
+    s = BU_CHECK_SIZE
+    mask = np.ones((batch_size, s, s))
+    mask[:, s // 4: s // 2, s // 8: s // 2] = 0
+    batch = dict(
+        views=torch.from_numpy(rng.randn(batch_size, 9, s, s)),
+        joints=torch.from_numpy(rng.uniform(0, s - 2, (batch_size, 10, 17,
+                                                       2))),
+        joints_vis=torch.ones(batch_size, 10, 17, dtype=torch.float64),
+        mask=torch.from_numpy(mask))
+    after = {}
+    for key, where in (("cpu", torch.device("cpu")), ("card", dev)):
+        model = get_pose_net(cfg)
+        load_model_file(model, start_path)
+        g = get_generator()
+        with torch.no_grad():  # G's N(0, 0.001) init gives ~0 logits
+            for p_ in g.parameters():
+                p_.mul_(30.0)
+        model, g = model.double(), g.double()
+        start = {"d": {k: v.clone() for k, v in model.state_dict().items()},
+                 "g": {k: v.clone() for k, v in g.state_dict().items()}}
+        state = create_advmix_state(cfg, model, g, where, torch.float64)
+        step = make_bottomup_advmix_step(state, cfg, alpha=ALPHA,
+                                         adv_loss_weight=ADV_W)
+        metrics = step({k: v.to(where) for k, v in batch.items()})
+        after[key] = dict(
+            d={k: v.cpu() for k, v in state.model_d.state_dict().items()},
+            g={k: v.cpu() for k, v in state.model_g.state_dict().items()},
+            m={k: float(v) for k, v in metrics.items()})
+        del state, step, model, g
+    out = dict(cpu=after["cpu"]["m"], card=after["card"]["m"])
+    for net in ("d", "g"):
+        moved = diff = 0.0
+        for k, ref in after["cpu"][net].items():
+            if ref.is_floating_point():
+                moved = max(moved, float((ref - start[net][k]).abs().max()))
+                diff = max(diff, float((after["card"][net][k] - ref)
+                                       .abs().max()))
+        out[net] = diff / moved
+    return out
+
+
+def bottomup_phase(dev, tmp: str, kernel_fns) -> dict:
+    """Phase 12. Returns the kernels' launches on each bottom-up path."""
+    from advmix_tpu_torch.config import get_default_config
+
+    torch.cuda.empty_cache()
+    root = os.path.join(tmp, "bottomup")
+    rng = np.random.RandomState(SEED + 50)
+    people = {s: write_bottomup_coco(root, s, n, rng)
+              for s, n in BU_SETS.items()}
+    cfg = get_default_config()
+    cfg.merge_from_file(HIGHER_CFG)
+    cfg.DATASET.ROOT = root
+    cfg.freeze()
+    pairs = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12], [13, 14],
+             [15, 16]]
+    log(f"[bottomup] {os.path.relpath(HIGHER_CFG, HERE)}: synthetic COCO "
+        f"sets (images, people): " + ", ".join(
+            f"{s} ({BU_SETS[s]}, {people[s]})" for s in BU_SETS))
+
+    # seeded weights, BN calibrated, heads calibrated
+    t0 = time.perf_counter()
+    model = random_model(cfg, dev)
+    image = bottomup_batch(cfg, dev)
+    dense = dense_grouping(model, cfg, image, pairs)
+    model_raw = copy.deepcopy(model)
+    heads = calibrate_bottomup_heads(model, cfg, image, pairs)
+    start_path = os.path.join(tmp, "bu_start.pth")
+    torch.save(model.state_dict(), start_path)
+    # the multi-scale pass averages in the maps of 256 and 1024 inputs,
+    # which the random trunk answers otherwise: its own calibration
+    cfg_ms = cfg.clone()
+    cfg_ms.defrost()
+    cfg_ms.TEST.SCALE_FACTOR = [0.5, 1, 2]
+    cfg_ms.freeze()
+    model_ms = copy.deepcopy(model_raw)
+    heads_ms = calibrate_bottomup_heads(model_ms, cfg_ms, image, pairs)
+    start_ms = os.path.join(tmp, "bu_start_ms.pth")
+    torch.save(model_ms.state_dict(), start_ms)
+    del model, model_ms, image
+    n_params = sum(p.numel() for p in model_raw.parameters())
+    log(f"[bottomup] HigherHRNet-W32 ({n_params} params), seeded He weights "
+        f"with calibrated BN: one image from the raw heads' maps (flip "
+        f"test): {dense['above']} of 17 x 30 peaks above 0.1, group_peaks "
+        f"{dense['groups']} groups in {dense['group_s']:.3f} s, "
+        f"refine_group {dense['refine_s']:.3f} s per group (the parse "
+        f"refines all {dense['groups']}: not run); heads calibrated: "
+        f"{heads['peaks']:.2f} peaks above 0.1 per map, tag spread "
+        f"{heads['tag_std']:.3f}; for [0.5, 1, 2]: {heads_ms['peaks']:.2f}"
+        f", {heads_ms['tag_std']:.3f} ({time.perf_counter() - t0:.1f} s)")
+
+    out = {"bottomup_eval": bottomup_eval_paths(
+        dev, tmp, root, {"[1]": start_path, "[0.5, 1, 2]": start_ms},
+        kernel_fns)}
+    bottomup_card_vs_cpu(model_raw, cfg, pairs, dev, start_path)
+    del model_raw
+    torch.cuda.empty_cache()
+    out["bottomup_train"] = bottomup_train_paths(dev, tmp, root, start_path,
+                                                 kernel_fns)
+    out["bottomup_sweep"] = bottomup_sweep_path(dev, tmp, root, start_path,
+                                                kernel_fns)
+    return out
+
+
+@contextlib.contextmanager
+def bottomup_stats():
+    """Yields a dict that `validate_bottomup`'s timings and counts fill
+    while the block runs (the entry points call it through the module)."""
+    import advmix_tpu_torch.engine.trainer as trainer_mod
+
+    stats: dict = {}
+    real = trainer_mod.validate_bottomup
+
+    def with_stats(*a, **k):
+        return real(*a, stats=stats, **k)
+
+    trainer_mod.validate_bottomup = with_stats
+    try:
+        yield stats
+    finally:
+        trainer_mod.validate_bottomup = real
+
+
+def run_bottomup_validate(argv, kernel_fns) -> dict:
+    """`tools/validate.main(argv)` with `validate_bottomup`'s timings
+    captured. Returns the score, the timings, the launches, the wall
+    seconds and the peak device memory."""
+    from advmix_tpu_torch.tools import validate as validate_tool
+
+    for fn in kernel_fns:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with bottomup_stats() as stats:
+        names, ap = validate_tool.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not (np.isfinite(ap) and 0.0 <= ap <= 1.0) or "AP" not in names:
+        raise AssertionError(f"bottom-up AP {ap} is not a valid score")
+    if stats.get("images") != BU_SETS["val2017"] or not stats["groups"]:
+        raise AssertionError(f"validate_bottomup grouped {stats}")
+    return dict(ap=ap, stats=stats, wall=wall,
+                launches=launch_counts(kernel_fns),
+                peak=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def bottomup_eval_paths(dev, tmp: str, root: str, starts: dict,
+                        kernel_fns) -> dict:
+    """12a: the YAML's eval through `tools/validate.main` (flip test, bf16,
+    batch 8), at TEST.SCALE_FACTOR [1] and [0.5, 1, 2] (`starts`: the
+    weights for each), and the OCHuman YAML through the alias; then the
+    device infer of one batch timed and profiled at each scale setting.
+    Returns the launches (all 0)."""
+    from advmix_tpu_torch.config import get_default_config
+    from advmix_tpu_torch.engine.steps import make_bottomup_eval_step
+    from advmix_tpu_torch.models import get_pose_net, load_model_file
+    from advmix_tpu_torch.models.layers import set_compute_dtype
+
+    total = {fn.__name__: 0 for fn in kernel_fns}
+    for rel, scales in ((HIGHER_CFG, "[1]"), (HIGHER_CFG, "[0.5, 1, 2]"),
+                        (OCHUMAN_CFG, "[1]")):
+        name = os.path.basename(os.path.dirname(os.path.dirname(rel)))
+        argv = ["--cfg", rel, "--device", str(dev), "--modelDir",
+                os.path.join(tmp, "bu_val_out"), "--logDir",
+                os.path.join(tmp, "bu_val_log"), "DATASET.ROOT", root,
+                "TEST.MODEL_FILE", starts[scales], "TEST.SCALE_FACTOR",
+                scales]
+        r = run_bottomup_validate(argv, kernel_fns)
+        st = r["stats"]
+        for k in total:
+            total[k] += r["launches"][k]
+        log(f"[bottomup] tools/validate.main {name} TEST.SCALE_FACTOR "
+            f"{scales}: {r['wall']:.2f} s (cuDNN autotuning included) over "
+            f"{st['images']} images; step to read-back {st['device_s']:.3f} "
+            f"s, host grouping {st['group_s'] / st['images']:.4f} s/image, "
+            f"{st['groups'] / st['images']:.2f} groups/image, COCO eval "
+            f"{st['eval_s']:.3f} s; AP {r['ap']:.4f} (seeded weights); peak "
+            f"device memory {r['peak']:.2f} GiB; launches {r['launches']}")
+        if rel == OCHUMAN_CFG:
+            continue
+        cfg = get_default_config()
+        cfg.merge_from_file(rel)
+        cfg.DATASET.ROOT = root
+        cfg.TEST.SCALE_FACTOR = json.loads(scales)
+        cfg.freeze()
+        model = get_pose_net(cfg)
+        load_model_file(model, starts[scales])
+        model = set_compute_dtype(model.to(dev).eval(), torch.bfloat16)
+        step = make_bottomup_eval_step(model, cfg, [[1, 2], [3, 4], [5, 6],
+                                                    [7, 8], [9, 10], [11, 12],
+                                                    [13, 14], [15, 16]],
+                                       scales=tuple(cfg.TEST.SCALE_FACTOR))
+        batch = {"image": bottomup_batch(cfg, dev)}
+        torch.cuda.reset_peak_memory_stats()
+        ms = wall_ms(lambda: step(batch), iters=5)
+        prof = profile_by_family(lambda: step(batch), steps=2)
+        log(f"[bottomup] eval step (bf16, flip, scales {scales}) at batch "
+            f"8: {ms:.3f} ms/batch, {8 / ms * 1e3:.1f} img/s; profile of 2 "
+            f"steps: wall {prof['wall_ms']:.3f} ms/step, device busy "
+            f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_share']:.1f}%), "
+            f"{prof['kernels']} kernels per step; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log_families("bottomup", prof)
+        del model, step, batch
+        torch.cuda.empty_cache()
+    if any(total.values()):
+        raise AssertionError(f"a kernel launched on the bottom-up eval {total}")
+    return total
+
+
+def bottomup_card_vs_cpu(model, cfg, pairs, dev, start_path: str) -> None:
+    """12b: the float64 infer and the float64 AdvMix step, card against
+    CPU, at a BU_CHECK_SIZE input (the CPU's float64 convolutions are the
+    cost). The infer runs the raw heads (hundreds of peaks above 0.1 to
+    compare) on 2 images at one scale and 1 at [0.5, 1, 2]."""
+    c = cfg.clone()
+    c.defrost()
+    c.MODEL.IMAGE_SIZE = [BU_CHECK_SIZE, BU_CHECK_SIZE]
+    c.MODEL.HEATMAP_SIZE = [BU_CHECK_SIZE // 4, BU_CHECK_SIZE // 4]
+    c.freeze()
+    image = bottomup_batch(c, dev, n=2)
+    for scales, n in (((1.0,), 2), ((0.5, 1.0, 2.0), 1)):
+        c.defrost()
+        c.TEST.SCALE_FACTOR = list(scales)
+        c.freeze()
+        t0 = time.perf_counter()
+        r = bottomup_infer_card_vs_cpu(model, c, image[:n], pairs, dev)
+        ok = (r["heat"] < 1e-12 and r["tags"] < 1e-12 and r["peak_val"] < 1e-12
+              and r["same_pixels"] and r["n_above"] > 0)
+        log(f"[bottomup] float64 infer, card vs CPU, {n} image(s) at "
+            f"{BU_CHECK_SIZE}x{BU_CHECK_SIZE}, scales {list(scales)}: max "
+            f"|diff| / max |CPU| heat {r['heat']:.3g}, tags {r['tags']:.3g}, "
+            f"the {r['n_above']} peaks above 0.1 {r['peak_val']:.3g}, same "
+            f"pixels {r['same_pixels']} (limit 1e-12; "
+            f"{time.perf_counter() - t0:.1f} s)")
+        if not ok:
+            raise AssertionError(f"bottom-up infer card vs CPU: {r}")
+    t0 = time.perf_counter()
+    r = bottomup_step_card_vs_cpu(cfg, start_path, dev)
+    gaps = {k: abs(r["card"][k] - r["cpu"][k]) / max(1.0, abs(r["cpu"][k]))
+            for k in ("loss_d", "loss_g")}
+    log(f"[bottomup] float64 AdvMix step, card vs CPU, batch 2 at "
+        f"{BU_CHECK_SIZE}x{BU_CHECK_SIZE}: loss_d {r['card']['loss_d']:.9f} / "
+        f"{r['cpu']['loss_d']:.9f}, loss_g {r['card']['loss_g']:.9f} / "
+        f"{r['cpu']['loss_g']:.9f}; parameters after the step, max |diff| "
+        f"/ max |update|: D {r['d']:.3g}, G {r['g']:.3g} (limit 1e-6; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if max(gaps.values()) > 1e-6 or r["d"] > 1e-6 or r["g"] > 1e-6:
+        raise AssertionError(f"bottom-up AdvMix step card vs CPU: {r}")
+
+
+def bottomup_train_paths(dev, tmp: str, root: str, start_path: str,
+                         kernel_fns) -> dict:
+    """12c: `tools/train.main --advmix --sample_times 3` (3 iterations of
+    batch 12, validate, checkpoint) and a plain epoch of 2 iterations; the
+    AdvMix iteration timed and profiled at batch 12 (`tools/bench`), and
+    the bench CLI run. Returns the launches (all 0)."""
+    from advmix_tpu_torch.config import get_default_config
+    from advmix_tpu_torch.tools import bench as bench_tool
+    from advmix_tpu_torch.tools import train as train_tool
+
+    total = {fn.__name__: 0 for fn in kernel_fns}
+    for mode, n_iter in (("advmix", 3), ("plain", 2)):
+        flags = (["--advmix", "--sample_times", "3"] if mode == "advmix"
+                 else [])
+        opts = ["DATASET.TEST_SET", "val1"] + (
+            [] if mode == "advmix" else ["DATASET.TRAIN_SET", "train24"])
+        argv = ["--cfg", HIGHER_CFG, "--device", str(dev), "--load_from_D",
+                start_path, "--modelDir", os.path.join(tmp, f"bu_{mode}"),
+                "--logDir", os.path.join(tmp, f"bu_{mode}_log"), *flags,
+                "DATASET.ROOT", root, "TRAIN.END_EPOCH", "1", "PRINT_FREQ",
+                "1", *opts]
+        for fn in kernel_fns:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with bottomup_stats() as stats:
+            result = train_tool.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(kernel_fns)
+        for k in total:
+            total[k] += launches[k]
+        hist = result["history"]
+        key = "loss_d" if mode == "advmix" else "loss"
+        if len(hist) != 1 or len(hist[0]) != n_iter:
+            raise AssertionError(f"bottom-up {mode}: trained "
+                                 f"{[len(h) for h in hist]} iterations")
+        for i, m in enumerate(hist[0]):
+            if not (np.isfinite(m[key]) and m[key] > 0) or (
+                    mode == "advmix" and not m["loss_g"] < 0):
+                raise AssertionError(f"bottom-up {mode} iteration {i}: {m}")
+        if not (np.isfinite(result["perf"]) and os.path.isfile(
+                result["final_state"])):
+            raise AssertionError(f"bottom-up {mode}: AP {result['perf']}, "
+                                 "no final state")
+        losses = ", ".join(f"{m[key]:.6f}" for m in hist[0])
+        log(f"[bottomup] tools/train.main {mode}: 1 epoch of {n_iter} "
+            f"iterations of batch 12 + validate_bottomup() on "
+            f"{stats['images']} images: {wall:.2f} s (cuDNN autotuning "
+            f"included), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {key} "
+            f"{losses}; validation: {stats['groups'] / stats['images']:.1f} "
+            f"groups/image, host grouping "
+            f"{stats['group_s'] / stats['images']:.3f} s/image; AP "
+            f"{result['perf']:.4f}; launches {launches}")
+        del result
+        torch.cuda.empty_cache()
+    if any(total.values()):
+        raise AssertionError(f"a kernel launched on bottom-up training {total}")
+
+    cfg = get_default_config()
+    cfg.merge_from_file(HIGHER_CFG)
+    cfg.freeze()
+    t = bench_tool.time_advmix(cfg, dev, 12, torch.bfloat16, iters=3,
+                               inspect=profile_by_family)
+    prof = t["inspect"]
+    log(f"[bottomup] AdvMix bf16 batch 12 at 512x512, 10 people per image "
+        f"(tools/bench.time_advmix): view synthesis {t['views_ms']:.3f} ms, "
+        f"step {t['step_ms']:.3f} ms, both {t['both_ms']:.3f} ms/iteration "
+        f"= {t['img_per_s']:.1f} img/s; peak device memory "
+        f"{t['peak_gib']:.2f} GiB; profile of 2 iterations: device busy "
+        f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_share']:.1f}%), "
+        f"{prof['kernels']} kernels per iteration")
+    log_families("bottomup", prof)
+    torch.cuda.empty_cache()
+    import io
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):  # its JSON line, into the log
+        res = bench_tool.main(["--cfg", HIGHER_CFG, "--batch", "12",
+                               "--iters", "3"])
+    if res["batch"] != 12 or not np.isfinite(res["loss_d"]):
+        raise AssertionError(f"tools.bench bottom-up: {res}")
+    log(f"[bottomup] tools.bench --cfg {os.path.relpath(HIGHER_CFG, HERE)} "
+        f"--batch 12 --iters 3 printed: {printed.getvalue().strip()}")
+    torch.cuda.empty_cache()
+    return total
+
+
+def bottomup_sweep_path(dev, tmp: str, root: str, start_path: str,
+                        kernel_fns) -> dict:
+    """12d: `tools/test_corruption.main --on_the_fly` over one batch of 8
+    images: clean + BU_SWEEP x 5 severities. Returns the launches (0)."""
+    import csv
+
+    argv = ["--cfg", HIGHER_CFG, "--on_the_fly", "--device", str(dev),
+            "--distortions", ",".join(BU_SWEEP), "--modelDir",
+            os.path.join(tmp, "bu_sweep_out"), "--logDir",
+            os.path.join(tmp, "bu_sweep_log"), "DATASET.ROOT", root,
+            "DATASET.TEST_SET", "val8", "TEST.MODEL_FILE", start_path]
+    n_pass = 1 + 5 * len(BU_SWEEP)
+    sw = run_sweep(argv, None, kernel_fns, n_pass=n_pass)
+    with open(sw["result"]["csv"]) as f:
+        row = next(csv.DictReader(f))
+    for k in ("clean_mAP", "mean_corrupted_mAP", "rAP", *BU_SWEEP):
+        if not np.isfinite(float(row[k])):
+            raise AssertionError(f"bottom-up CSV {k} = {row[k]}")
+    if any(sw["launches"].values()):
+        raise AssertionError(f"a kernel launched on the sweep {sw['launches']}")
+    log(f"[bottomup] tools/test_corruption.main --on_the_fly --distortions "
+        f"{','.join(BU_SWEEP)}: {n_pass} passes over {BU_SETS['val8']} "
+        f"images (one batch) in {sw['wall']:.2f} s; CSV clean_mAP "
+        f"{row['clean_mAP']} mean_corrupted_mAP {row['mean_corrupted_mAP']} "
+        f"rAP {row['rAP']} (seeded weights); launches {sw['launches']}")
+    log_sweep_times("bottomup", sw)
+    return sw["launches"]
+
+
 def card_matches_cpu(name: str, model, dev, image_size) -> None:
     """The model on the card against the same model on the CPU on one
     seeded random image, leaving it f32 on the card. In float64 the two
@@ -2022,6 +2641,9 @@ def main() -> None:
     # ---- 11. TEST.SOFT_ARGMAX ---------------------------------------------
     paths["soft_argmax"] = soft_argmax_phase(
         dev, tmp, start_path, SyntheticCropCOCO, kernel_fns)["launches"]
+
+    # ---- 12. bottom-up HigherHRNet-W32 512x512 ----------------------------
+    paths.update(bottomup_phase(dev, tmp, kernel_fns))
 
     kernels = []
     for k in ("decode_heatmaps", "oks_matrix_batched", "oks_matrix"):

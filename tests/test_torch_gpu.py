@@ -15,7 +15,8 @@ of 0.25), at COCO's and MPII's shapes; soft-argmax (plain PyTorch) within
 1e-3 heatmap px of the CPU. OKS: rtol 1e-5, atol 1e-6, since CUDA's `expf` and torch's `exp`
 may differ in the last bit. Keep lists: equal. Corruptions (plain PyTorch on
 the card, no hand kernel): the card and the CPU at most 1 uint8 level apart
-on at most 0.5% of values.
+on at most 0.5% of values. The bottom-up infer (plain PyTorch, no hand
+kernel) in float64: the card equals the CPU to 1e-12 of the range.
 """
 
 import numpy as np
@@ -356,3 +357,29 @@ def test_cuda_traced_corruption_in_range(cuda, name):
         assert out.shape == x.shape and torch.isfinite(out).all()
         assert float(out.min()) >= 0 and float(out.max()) <= 255
     assert torch.equal(a, b) != (name in DRAWS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scales", [(1.0,), (0.5, 1.0, 2.0)])
+def test_cuda_bottomup_infer_float64_matches_cpu(cuda, scales):
+    """HigherHRNet-W32 at full width (seeded weights, BN calibrated) and a
+    256x256 input: the bottom-up infer in float64 (flip test, the given
+    TEST.SCALE_FACTOR) on the card equals the CPU's to 1e-12 of the range,
+    heatmaps, tags and the peaks above 0.1, which sit at the same pixels."""
+    from advmix_tpu_torch.config import get_default_config
+    from chip_smoke import HIGHER_CFG, bottomup_infer_card_vs_cpu, \
+        random_model
+
+    cfg = get_default_config()
+    cfg.merge_from_file(HIGHER_CFG)
+    cfg.MODEL.IMAGE_SIZE = [256, 256]
+    cfg.MODEL.HEATMAP_SIZE = [64, 64]
+    cfg.TEST.SCALE_FACTOR = list(scales)
+    cfg.freeze()
+    model = random_model(cfg, torch.device("cpu"))
+    x = torch.from_numpy(np.random.RandomState(12).randn(1, 256, 256, 3))
+    pairs = [[2 * i + 1, 2 * i + 2] for i in range(8)]
+    r = bottomup_infer_card_vs_cpu(model, cfg, x, pairs, cuda)
+    assert r["shape"] == (1, 17, 128, 128)
+    assert r["heat"] < 1e-12 and r["tags"] < 1e-12, r
+    assert r["n_above"] > 0 and r["same_pixels"] and r["peak_val"] < 1e-12, r

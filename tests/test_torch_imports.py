@@ -153,3 +153,46 @@ def test_family_modules_name_their_jax_counterpart(name, counterpart):
         assert not line.startswith(("import jax", "from jax", "import cv2",
                                     "from advmix_tpu ", "from advmix_tpu.",
                                     "import advmix_tpu "))
+
+
+BOTTOMUP_MODULES = [("models.higher_hrnet", "advmix_tpu/models/higher_hrnet.py"),
+                    ("ops.ae", "advmix_tpu/ops/ae.py"),
+                    ("data.masks", "advmix_tpu/data/masks.py"),
+                    ("data.bottomup", "advmix_tpu/data/bottomup.py"),
+                    ("evaluation.grouping",
+                     "advmix_tpu/evaluation/grouping.py")]
+
+
+@pytest.mark.parametrize("name,counterpart", BOTTOMUP_MODULES)
+def test_bottomup_modules_name_their_jax_counterpart(name, counterpart):
+    """Each module of the bottom-up slice documents which JAX module it
+    ports or copies, and imports nothing of JAX or of the JAX package, and
+    not cv2 at module level."""
+    path = os.path.join(ROOT, "advmix_tpu_torch", *name.split(".")) + ".py"
+    src = open(path).read()
+    assert counterpart in src.split('"""')[1]
+    for line in src.splitlines():
+        assert not line.startswith(("import jax", "from jax", "import cv2",
+                                    "from advmix_tpu ", "from advmix_tpu.",
+                                    "import advmix_tpu "))
+
+
+HIGHER = os.path.join(ROOT, "experiments/coco/higher_hrnet/w32_512_advmix.yaml")
+OCHUMAN = os.path.join(ROOT,
+                       "experiments/ochuman/higher_hrnet/w32_512_advmix.yaml")
+
+
+@pytest.mark.parametrize("tool,args", [
+    ("validate", ["--cfg", OCHUMAN]),
+    ("train", ["--cfg", HIGHER, "--advmix", "--sample_times", "3"]),
+    ("test_corruption", ["--cfg", HIGHER, "--on_the_fly"]),
+    ("bench", ["--cfg", HIGHER, "--batch", "12"]),
+])
+def test_bottomup_entry_points_without_card_raise(tmp_path, tool, args):
+    proc = subprocess.run(
+        [sys.executable, "-m", f"advmix_tpu_torch.tools.{tool}", *args],
+        cwd=str(tmp_path), env=NO_CARD, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr
+    assert not os.listdir(tmp_path)

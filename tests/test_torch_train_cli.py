@@ -1,14 +1,18 @@
 """The port's train entry point, `python -m advmix_tpu_torch.tools.train
 --device cpu`, on experiments/synthetic/res18_64x64_smoke.yaml: standard and
 AdvMix training run, checkpoint, resume and export; the validate entry point
-reads the export back; options of later slices (int8, bottom-up) stop with
-their message; and
+reads the export back; the int8 option of a later slice stops with its
+message, also on the bottom-up configs; the reference's own AdvMix command
+(scripts/train.sh) parses, and each flag the reference parses and never
+reads is accepted with a warning that names it; a directory as
+TEST.MODEL_FILE (a JAX orbax final_state) stops validate and the sweep; and
 without a card the entry point raises unless asked for the CPU.
 """
 
 import os
 import subprocess
 import sys
+import warnings
 
 import pytest
 import torch
@@ -103,23 +107,26 @@ def test_train_checkpoints_resumes_and_exports(tmp_path, monkeypatch, mode):
     assert opt and all(float(s["step"]) == 4 for s in opt.values())
 
 
+INT8 = "not ported yet: TRAIN.INT8_TEACHER needs ops/quant.py: the int8 " \
+    "and serving slice"
+
+
 @pytest.mark.parametrize("args,message", [
-    (["DATASET.DATASET", "bottomup_coco"],
-     "DATASET.DATASET bottomup_coco is the bottom-up"),
-    (["DATASET.DATASET", "ochuman"], "DATASET.DATASET ochuman is the bottom-up"),
-    (["TRAIN.INT8_TEACHER", "True", "DATASET.DATASET", "ochuman"],
-     "ops/quant.py: the int8 and serving slice; DATASET.DATASET ochuman"),
-    (["TRAIN.INT8_TEACHER", "True"], "TRAIN.INT8_TEACHER needs ops/quant.py"),
-    (["MODEL.NAME", "pose_higher_hrnet"], "bottom-up"),
+    (["TRAIN.INT8_TEACHER", "True", "DATASET.DATASET", "bottomup_coco"],
+     INT8),
+    (["TRAIN.INT8_TEACHER", "True", "DATASET.DATASET", "ochuman"], INT8),
+    (["TRAIN.INT8_TEACHER", "True"], INT8),
+    (["TRAIN.INT8_TEACHER", "True", "MODEL.NAME", "pose_higher_hrnet"],
+     INT8),
 ])
 def test_later_slice_options_stop_with_their_message(tmp_path, monkeypatch,
                                                      args, message):
+    """The int8 arm is the only one left: the bottom-up names are ported
+    and no longer appear in the message."""
     monkeypatch.chdir(tmp_path)
-    flags = [a for a in args if a.startswith("--") or a == "0.5"]
-    opts = [a for a in args if a not in flags]
     with pytest.raises(SystemExit) as err:
-        train_tool.main(["--cfg", SMOKE, "--device", "cpu", *flags, *opts])
-    assert "not ported yet" in str(err.value) and message in str(err.value)
+        train_tool.main(["--cfg", SMOKE, "--device", "cpu", *args])
+    assert str(err.value) == message
     assert not os.listdir(tmp_path)  # it stopped before writing anything
 
 
@@ -192,3 +199,65 @@ def test_load_pretrained_takes_matching_layers_only(tmp_path):
     torch.save({"unrelated": torch.zeros(1)}, path)
     with pytest.raises(KeyError):
         load_pretrained(model, path)
+
+
+def test_reference_train_script_arguments_parse(tmp_path, monkeypatch):
+    """The argument list of scripts/train.sh (the reference's AdvMix
+    command, with --kd_mseloss) trains through the port's entry point."""
+    import re
+    import shlex
+
+    line = next(ln for ln in open(os.path.join(ROOT, "scripts/train.sh"))
+                if ln.startswith("ARGS=("))
+    args = shlex.split(re.match(r"ARGS=\((.*)\)", line.strip())[1])
+    assert "--kd_mseloss" in args and args[:2] == ["--cfg", '$CFG']
+    args[1] = SMOKE
+    monkeypatch.chdir(tmp_path)
+    out = train_tool.main(args + ["--device", "cpu", "--downsamples", "4",
+                                  *SMALL])
+    assert len(out["history"][0]) == 2
+    assert all(m["loss_g"] < 0 for m in out["history"][0])
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("--kd_klloss", None), ("--combine_prob", "0.3"),
+    ("--perturb_joint", "0.1"), ("--perturb_range", "3"),
+    ("--joints_num", "17"), ("--prevModelDir", "prev"),
+    ("--save_suffix", "x"), ("--load_json_file", "a.json")])
+def test_reference_only_flags_warn_with_their_name(flag, value):
+    from advmix_tpu_torch.tools._parse import parse_args
+
+    argv = ["--cfg", SMOKE, flag] + ([value] if value else [])
+    with pytest.warns(UserWarning) as rec:
+        args = parse_args(argv)
+    assert len(rec) == 1 and str(rec[0].message).startswith(
+        f"{flag} is accepted and ignored")
+    assert not hasattr(args, flag[2:])
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # without the flag: no warning
+        parse_args(["--cfg", SMOKE, "--kd_mseloss", "--test_robust",
+                    "--corruption_type", "fog", "--severity", "2"])
+
+
+@pytest.mark.parametrize("tool", ["validate", "test_corruption"])
+def test_directory_model_file_stops_the_run(tmp_path, monkeypatch, tool):
+    """A JAX orbax final_state is a directory: the pass must not evaluate
+    the random init as if it had loaded it."""
+    from advmix_tpu_torch.tools import test_corruption as sweep_tool
+
+    monkeypatch.chdir(tmp_path)
+    orbax = tmp_path / "final_state"
+    orbax.mkdir()
+    main = validate_tool.main if tool == "validate" else sweep_tool.main
+    extra = ["--on_the_fly"] if tool == "test_corruption" else []
+    with pytest.raises(SystemExit) as err:
+        main(["--cfg", SMOKE, "--device", "cpu", *extra, *SMALL,
+              "TEST.MODEL_FILE", str(orbax)])
+    msg = str(err.value)
+    assert str(orbax) in msg and "is a directory" in msg and ".npz" in msg
+    proc = subprocess.run(
+        [sys.executable, "-m", f"advmix_tpu_torch.tools.{tool}", "--cfg",
+         SMOKE, "--device", "cpu", *extra, *SMALL, "TEST.MODEL_FILE",
+         str(orbax)], cwd=str(tmp_path), env=ENV, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode != 0 and "is a directory" in proc.stderr

@@ -93,7 +93,8 @@ def calibrate_bn(flat: dict, port_model, x_nhwc: np.ndarray) -> dict:
     batch would otherwise amplify the f32 rounding of everything after
     it (with a floor of 1e-2 the tiny HRNet's own f32 and f64 forwards
     differ by 1e-5 of the output's range, with 1 by 1e-6)."""
-    from advmix_tpu_torch.models.convert import jax_to_torch_state_dict
+    from advmix_tpu_torch.models.convert import flax_module_name, \
+        jax_to_torch_state_dict
 
     port_model.load_state_dict(jax_to_torch_state_dict(flat, port_model))
     bns = {n: m for n, m in port_model.named_modules()
@@ -109,7 +110,7 @@ def calibrate_bn(flat: dict, port_model, x_nhwc: np.ndarray) -> dict:
               for k in flat if k.startswith("batch_stats/")}
     out = dict(flat)
     for name, m in bns.items():
-        p = prefix[name.replace(".", "_")]
+        p = prefix[flax_module_name(name)]
         out[p + "/mean"] = m.running_mean.numpy().astype(np.float32)
         out[p + "/var"] = m.running_var.clamp(min=1.0).numpy().astype(
             np.float32)
