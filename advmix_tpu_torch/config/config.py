@@ -210,12 +210,10 @@ def get_default_config() -> ConfigNode:
     c.TRAIN.CROSS_REPLICA_BN = False  # per-replica BN matches DataParallel
     # int8 (W8A8) TEACHER forward inside the AdvMix step: the teacher is
     # frozen inference, so it can run quantized like the serving path
-    # (ops/quant.py) — trades int8-rounded KD targets for fewer HBM bytes
-    # in an HBM-bound step. Opt-in perf lever; calibrated on the first
-    # TEST.INT8_CALIB_BATCHES train batches. Wired for the top-down step
-    # (tools/train.py, bench.py BENCH_INT8_TEACHER); the bottom-up step
-    # exposes the same teacher_apply hook but is not wired by default
-    # (int8 measured counterproductive for bottom-up shapes, PERF.md).
+    # (ops/quant.py), with int8-rounded KD targets. Opt-in; calibrated on
+    # the first TEST.INT8_CALIB_BATCHES train batches. Read by the top-down
+    # step (tools/train.py, tools/bench.py --int8_teacher); a bottom-up
+    # config warns and ignores it, as the JAX package does.
     c.TRAIN.INT8_TEACHER = False
 
     c.TEST = ConfigNode()
@@ -238,11 +236,8 @@ def get_default_config() -> ConfigNode:
     c.TEST.MASK_FILE = ""
     c.TEST.SOFT_ARGMAX = False
     c.TEST.BIAS = 0.0
-    # TPU-native extensions: W8A8 int8 eval/serving (ops/quant.py) —
-    # the MXU runs int8 at ~2x bf16; calibration uses the first N clean
-    # val batches. Works on USE_SCAN configs too: the corruption CLI
-    # auto-derives the unscanned view (unstack_from_scan) for the int8
-    # eval, so shipped YAMLs run TEST.INT8 unmodified.
+    # W8A8 int8 eval (ops/quant.py, tools/test_corruption.py): the
+    # activation scales are calibrated on the first N clean val batches.
     c.TEST.INT8 = False
     c.TEST.INT8_CALIB_BATCHES = 2
     # safety margin on the calibrated activation scales: corruption sweeps

@@ -6,6 +6,13 @@ kernel is `advmix_tpu_torch/csrc/decode.cu`. `decode_heatmaps` launches it
 for a CUDA tensor and uses `decode_heatmaps_plain`, the same function in
 plain PyTorch, only for a tensor on the CPU. The source has two routes, and
 `decode_route` chooses one from the arguments before the launch.
+
+`decode_heatmaps` calls the custom op `advmix_tpu_torch::decode_heatmaps`
+(`torch.library.custom_op`): its CUDA implementation launches the kernel,
+its CPU implementation is the plain version, and its fake implementation
+gives `torch.export` the output shapes, so an exported program (the
+serving path, `tools/export.py`) keeps the launch as one node and
+`decode_heatmaps.launches` counts the launches made from inside it too.
 """
 
 from __future__ import annotations
@@ -92,12 +99,21 @@ def launch_decode(route: int, heatmaps: torch.Tensor, post_process: bool):
     return coords, maxvals, True
 
 
-def decode_heatmaps(heatmaps: torch.Tensor, post_process: bool = True):
-    """Decode (B, J, H, W) f32 heatmaps: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor. Returns coords (B, J, 2)
-    and maxvals (B, J, 1)."""
-    if heatmaps.device.type == "cpu":
-        return decode_heatmaps_plain(heatmaps, post_process)
+@torch.library.custom_op("advmix_tpu_torch::decode_heatmaps",
+                        mutates_args=())
+def _decode_op(heatmaps: torch.Tensor,
+               post_process: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    if heatmaps.device.type != "cpu":
+        raise RuntimeError(f"decode_heatmaps: no kernel for a "
+                           f"{heatmaps.device.type} tensor")
+    return decode_heatmaps_plain(heatmaps, post_process)
+
+
+@_decode_op.register_kernel("cuda")
+def _decode_cuda(heatmaps, post_process):
+    # an exported program calls the op itself, and may hand over the maps
+    # in another layout than the eager step's
+    heatmaps = heatmaps.contiguous()
     check_cuda_tensor("heatmaps", heatmaps, torch.float32, 4)
     route = decode_route(heatmaps.shape[-2], heatmaps.shape[-1],
                          heatmaps.data_ptr())
@@ -105,6 +121,23 @@ def decode_heatmaps(heatmaps: torch.Tensor, post_process: bool = True):
                                               post_process)
     decode_heatmaps.launches += int(launched)
     return coords, maxvals
+
+
+@_decode_op.register_fake
+def _decode_fake(heatmaps, post_process):
+    b, j = heatmaps.shape[:2]
+    return (heatmaps.new_empty((b, j, 2)), heatmaps.new_empty((b, j, 1)))
+
+
+def decode_heatmaps(heatmaps: torch.Tensor, post_process: bool = True):
+    """Decode (B, J, H, W) f32 heatmaps: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor. Returns coords (B, J, 2)
+    and maxvals (B, J, 1). Any other tensor raises."""
+    if heatmaps.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"heatmaps must be a CPU or CUDA tensor, got "
+                         f"{heatmaps.device}")
+    return torch.ops.advmix_tpu_torch.decode_heatmaps(heatmaps,
+                                                     bool(post_process))
 
 
 decode_heatmaps.launches = 0

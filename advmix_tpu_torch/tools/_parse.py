@@ -5,9 +5,7 @@ The flags of `tools/_parse.py` that the ported paths read, plus
 `--kd_mseloss` names the MSE KD term the AdvMix steps always use, and
 `--test_robust` / `--corruption_type` / `--severity` feed `update_config`.
 The flags that the reference parses and never reads (`REFERENCE_ONLY`) are
-accepted with one warning each that names the flag. A feature that is not
-ported yet is stopped by `reject_later_slices` with an error that names
-what is missing; none is accepted and ignored.
+accepted with one warning each that names the flag.
 """
 
 import argparse
@@ -81,10 +79,3 @@ def parse_args(argv=None):
             delattr(args, flag[2:])
     return args
 
-
-def reject_later_slices(args, cfg) -> None:
-    """Stop with an error for every option whose feature the port does not
-    have yet."""
-    if cfg.TRAIN.INT8_TEACHER:
-        raise SystemExit("not ported yet: TRAIN.INT8_TEACHER needs "
-                         "ops/quant.py: the int8 and serving slice")

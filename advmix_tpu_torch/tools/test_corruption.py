@@ -27,6 +27,12 @@ prepared batches are replayed from host memory after the first pass
 tree `<ROOT_C>/<corruption>/<severity 0-4>/` (`data/coco-C` or
 `data/mpii-C`; `tools/make_datasets.py` writes one). It runs on the CUDA
 device, and raises without one unless `--device cpu` is given.
+
+TEST.INT8 evaluates every pass W8A8 (`ops/quant.py`; :133-182 of the JAX
+tool): the activation scales are calibrated on the first
+TEST.INT8_CALIB_BATCHES clean val batches, times TEST.INT8_CALIB_MARGIN,
+and the eval model is swapped for its quantized copy, top-down and
+bottom-up alike.
 """
 
 from __future__ import annotations
@@ -46,10 +52,11 @@ from ..engine.steps import make_bottomup_eval_step, make_eval_step
 from ..engine.trainer import make_eval_preprocessor, validate
 from ..models import get_pose_net
 from ..models.layers import set_compute_dtype
+from ..ops import quant
 from ..ops.corruptions import BENCHMARK_CORRUPTIONS, HOLDOUT_CORRUPTIONS
 from ..utils.device import resolve_device
 from ..utils.logging import create_logger
-from ._parse import parse_args, reject_later_slices
+from ._parse import parse_args
 from .validate import load_test_model_file
 
 BENCHMARK_15 = list(BENCHMARK_CORRUPTIONS)
@@ -75,10 +82,6 @@ def main(argv=None, build_dataset=default_build_dataset):
     args.test_robust = True
     cfg = get_default_config()
     update_config(cfg, args)
-    reject_later_slices(args, cfg)
-    if cfg.TEST.INT8:
-        raise SystemExit("not ported yet: TEST.INT8 needs ops/quant.py: the "
-                         "int8 and serving slice")
 
     logger, output_dir, _ = create_logger(cfg, args.cfg, "valid")
     logger.info(pprint.pformat(vars(args)) + "\n"
@@ -92,7 +95,7 @@ def main(argv=None, build_dataset=default_build_dataset):
     # build and load the model once (reference val_model_init, :38-58)
     model = get_pose_net(cfg)
     load_test_model_file(model, cfg, output_dir, logger)
-    model = set_compute_dtype(model.to(device).eval(), dtype)
+    model = model.to(device).eval()
 
     def dataset_for(corruption: str, severity0: int, robust: bool):
         cfg.defrost()
@@ -105,13 +108,25 @@ def main(argv=None, build_dataset=default_build_dataset):
     # the eval step is the same for the whole sweep: build it once
     first = dataset_for("clean", 0, False)
     bottomup = cfg.MODEL.NAME == "pose_higher_hrnet"
+    batch = cfg.TEST.BATCH_SIZE_PER_GPU
+    if cfg.TEST.INT8:
+        # calibrate the f32 weights computing in `dtype`, then quantize
+        # them: the copy computes in `dtype` too
+        set_compute_dtype(model, dtype, trainable=True)
+        act_scales = quant.calibrate_from_loader(
+            model, Loader(first, batch), cfg.TEST.INT8_CALIB_BATCHES, device,
+            margin=float(cfg.TEST.INT8_CALIB_MARGIN))
+        model = quant.quantize_model(model, act_scales)
+        logger.info(f"=> int8 eval: {len(act_scales)} convs calibrated on "
+                    f"{int(cfg.TEST.INT8_CALIB_BATCHES)} batch(es)")
+    else:
+        model = set_compute_dtype(model, dtype)
     if bottomup:
         eval_step = make_bottomup_eval_step(
             model, cfg, first.flip_pairs,
             scales=tuple(cfg.TEST.SCALE_FACTOR))
     else:
         eval_step = make_eval_step(model, cfg, first.flip_pairs)
-    batch = cfg.TEST.BATCH_SIZE_PER_GPU
     # on the fly, every pass reads the same clean crops and the device
     # corrupts them: the host's work is the same on every pass
     cached = (first, CachedLoader(Loader(first, batch))) \

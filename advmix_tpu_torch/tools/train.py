@@ -15,6 +15,10 @@ every epoch (:283-328), and the final export of the weights (:331-337).
 under `<dirname(ROOT)>/stylize_image_<DATASET>` (:145-163), and with it
 `--sp_style` exempts the stylized samples from AutoAugment and GridMask;
 DEBUG.DEBUG dumps image grids in training and validation (`utils/vis.py`).
+TRAIN.INT8_TEACHER gives the top-down AdvMix step a W8A8 teacher
+(`ops/quant.py`; :151-165, 270-290), calibrated on the first
+TEST.INT8_CALIB_BATCHES train batches; a bottom-up config warns and
+ignores it, as the JAX tool does.
 MODEL.NAME pose_higher_hrnet trains bottom-up (:74,150-160,207-208,245,
 297-301,349-363): the bottom-up steps of `engine/steps.py`, whole-image
 samples warped on the host (DATASET.DEVICE_WARP does not apply), and the
@@ -43,7 +47,8 @@ from ..models import get_generator, get_pose_net, he_reinit_convs, \
     load_generator_file, load_model_file, load_pretrained
 from ..utils.device import resolve_device
 from ..utils.logging import create_logger
-from ._parse import parse_args, reject_later_slices
+from ..ops import quant
+from ._parse import parse_args
 
 
 def main(argv=None, build_dataset=default_build_dataset):
@@ -55,7 +60,6 @@ def main(argv=None, build_dataset=default_build_dataset):
     device = resolve_device(args.device)
     cfg = get_default_config()
     update_config(cfg, args)
-    reject_later_slices(args, cfg)
     if args.sp_style and not args.stylize_image:
         raise SystemExit("--sp_style exempts the stylized samples of "
                          "--stylize_image: give both")
@@ -106,15 +110,17 @@ def main(argv=None, build_dataset=default_build_dataset):
         state = state_lib.create_advmix_state(cfg, model, model_g, device,
                                               dtype)
         if bottomup:
+            if cfg.TRAIN.INT8_TEACHER:
+                logger.warning("=> TRAIN.INT8_TEACHER ignored for bottom-up "
+                               "configs, as the JAX package ignores it")
             step_fn = steps.make_bottomup_advmix_step(
                 state, cfg, alpha=args.alpha,
                 adv_loss_weight=args.adv_loss_weight,
                 num_views=args.sample_times)
         else:
-            step_fn = steps.make_advmix_step(
-                state, cfg, alpha=args.alpha,
-                adv_loss_weight=args.adv_loss_weight,
-                num_views=args.sample_times, debug=debug)
+            # built once the train dataset exists: TRAIN.INT8_TEACHER
+            # calibrates on its first batches
+            step_fn = None
     else:
         state = state_lib.create_pose_state(cfg, model, device, dtype)
         step_fn = (steps.make_bottomup_step(state, cfg) if bottomup
@@ -147,6 +153,22 @@ def main(argv=None, build_dataset=default_build_dataset):
                     f"bucket {tuple(cfg.DATASET.WARP_BUCKET)})")
     logger.info(f"=> {len(train_dataset)} train / {len(valid_dataset)} val "
                 "samples")
+
+    if advmix and step_fn is None:
+        if cfg.TRAIN.INT8_TEACHER:
+            # the teacher is a copy of D as loaded: quantize D's f32 master
+            # weights, calibrated on the first clean train crops
+            state.teacher, act_scales = quant.int8_teacher_from_config(
+                dtype, state.model_d, device=device,
+                loader=Loader(train_dataset, cfg.TRAIN.BATCH_SIZE_PER_GPU),
+                n_batches=cfg.TEST.INT8_CALIB_BATCHES,
+                margin=float(cfg.TEST.INT8_CALIB_MARGIN))
+            logger.info(f"=> int8 teacher: {len(act_scales)} convs "
+                        "calibrated")
+        step_fn = steps.make_advmix_step(
+            state, cfg, alpha=args.alpha,
+            adv_loss_weight=args.adv_loss_weight,
+            num_views=args.sample_times, debug=debug)
 
     if bottomup:
         prep_train = trainer_lib.make_bottomup_preprocessor(cfg, advmix,

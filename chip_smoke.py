@@ -84,13 +84,32 @@ Phases, each fatal on failure:
    `tools/test_corruption.main --on_the_fly` with zoom_blur and
    defocus_blur over one batch of 8 (11 passes). The three kernels launch
    0 times on every bottom-up path, and the phase checks that;
-13. print a `kernels` JSON line and, last, the device JSON line.
+13. int8 and serving (`ops/quant.py`, `tools/export.py`, `tools/serve.py`,
+   `tools/serving_bench.py`), the W32 YAML at batch 128 bf16: the int8
+   convolution op on the card bit-equal to its CPU route on every
+   quantized conv of HRNet-W32 at batch 2 (the codes of a calibrated
+   forward) and on three convs at batch 128, which are timed beside
+   cuDNN's bf16 conv; the int8 and the bf16 eval step on one batch (heatmap
+   difference, ms/batch, kernels per step, busy share); the TEST.INT8 sweep
+   through `tools/test_corruption.main --on_the_fly` (the clean pass and
+   one corruption's 5 severities); `tools/train.main --advmix` with
+   TRAIN.INT8_TEACHER (3 iterations of batch 32, 292 teacher convs
+   quantized) and the int8-teacher iteration timed by `tools/bench`;
+   exports through `python -m advmix_tpu_torch.tools.export` at batch 128,
+   at batch 0 and with --int8 (started in the background after phase 4:
+   tracing takes the host a minute or more each), each served by
+   `PoseServer` with predictions equal to the eval step's bit for bit and
+   one decode launch per predict, and once over HTTP; the bottom-up YAML
+   exported at batch 8 and served, equal to `bottomup_infer_fn`; and
+   `tools/serving_bench` on its bf16, int8 and int8pre arms;
+14. print a `kernels` JSON line and, last, the device JSON line.
 
 It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import json
@@ -2364,6 +2383,578 @@ def bottomup_sweep_path(dev, tmp: str, root: str, start_path: str,
     return sw["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 13: int8 W8A8 eval, the int8 teacher, and serving
+# ---------------------------------------------------------------------------
+
+# the TEST.INT8 sweep: the clean pass and the first corruption's 5
+# severities (6 passes; the 76 of phase 7 would take the phase past its
+# time budget at the int8 step's speed)
+INT8_SWEEP = ("gaussian_noise",)
+SERVE_BATCH = 128
+BU_SERVE_BATCH = 8
+SERVING_STEPS = 5
+
+
+def int8_conv_checks(dev, cfg, start_path: str, flush) -> dict:
+    """13a. The row counts `torch._int_mm` takes here; `int8_conv2d` on
+    the card against its CPU route, bit for bit:
+    every quantized conv of HRNet-W32 at batch 2 on the codes of a
+    calibrated bf16 forward, and at batch 128 the stem, a stride-2 conv
+    and the widest 3x3; those three timed (CUDA events): the op alone, the
+    whole W8A8 conv (quantize, im2col, GEMM, rescale) and cuDNN's bf16 conv
+    on the same input."""
+    import torch.nn.functional as F
+
+    from advmix_tpu_torch.models import get_pose_net, load_model_file
+    from advmix_tpu_torch.models.layers import set_compute_dtype
+    from advmix_tpu_torch.ops import quant
+    from advmix_tpu_torch.ops.int8_conv import INT_MM_ROW_MULTIPLE, \
+        int8_conv2d
+
+    # the row counts this card's cuBLASLt takes in torch._int_mm, which
+    # int_mm_padded pads to (depth 32, width 64: torch's own checks pass)
+    rows = (17, 20, 24, 32, 33, 48, 64, 96)
+    taken = []
+    for m in rows:
+        try:
+            torch._int_mm(torch.ones(m, 32, dtype=torch.int8, device=dev),
+                          torch.ones(32, 64, dtype=torch.int8, device=dev))
+            torch.cuda.synchronize()
+            taken.append(m)
+        except RuntimeError:
+            pass
+    if any(m % INT_MM_ROW_MULTIPLE == 0 and m not in taken for m in rows):
+        raise AssertionError(f"torch._int_mm refused a row count that is a "
+                             f"multiple of {INT_MM_ROW_MULTIPLE}: took {taken}")
+    log(f"[int8] torch._int_mm on this card took {taken} of the row counts "
+        f"{list(rows)} (depth 32, width 64); int_mm_padded pads rows to "
+        f"multiples of {INT_MM_ROW_MULTIPLE}")
+
+    model = get_pose_net(cfg)
+    load_model_file(model, start_path)
+    model = set_compute_dtype(model.to(dev).eval(), torch.bfloat16,
+                              trainable=True)
+    w, h = cfg.MODEL.IMAGE_SIZE
+    x2 = torch.from_numpy(np.random.RandomState(SEED + 60).randn(
+        2, 3, h, w).astype(np.float32)).to(dev)
+    q = quant.quantize_model(model, quant.calibrate_act_scales(model, [x2]))
+    n_conv = len(q.quantized_paths)
+    codes = {}
+
+    def capture(name):
+        def hook(mod, args):
+            codes[name] = (quant.quantize_activation(args[0], mod.act_scale),
+                           quant.quantize_weight(mod.weight)[0], mod.stride,
+                           mod.padding)
+        return hook
+
+    handles = [q.get_submodule(n).register_forward_pre_hook(capture(n))
+               for n in q.quantized_paths]
+    with torch.no_grad():
+        q(x2)
+    for hd in handles:
+        hd.remove()
+    if len(codes) != n_conv:
+        raise AssertionError(f"{len(codes)} of {n_conv} convs ran")
+    t0 = time.perf_counter()
+    for name, (xq, wq, s, p) in codes.items():
+        got = int8_conv2d(xq, wq, s, p).cpu()
+        if not torch.equal(got, int8_conv2d(xq.cpu(), wq.cpu(), s, p)):
+            raise AssertionError(f"int8_conv2d differs from the CPU at {name}")
+    log(f"[int8] int8_conv2d on the card equals its CPU route (float64 conv "
+        f"of the codes) bit for bit on all {n_conv} quantized convs of "
+        f"HRNet-W32 at batch 2 ({time.perf_counter() - t0:.1f} s)")
+
+    # batch 128: the stem, a stride-2 conv, and the widest 3x3 (the most
+    # input channels; of those, the largest input)
+    widest = max((n for n, v in codes.items() if v[1].shape[2] == 3),
+                 key=lambda n: (codes[n][1].shape[1],
+                                codes[n][0].shape[2] * codes[n][0].shape[3]))
+    big = {}
+    handles = []
+    for name in ("conv1", "conv2", widest):
+        mod = q.get_submodule(name)
+        handles.append(mod.register_forward_pre_hook(
+            lambda m, a, n=name: big.__setitem__(n, a[0].detach().clone())))
+    x128 = torch.from_numpy(np.random.RandomState(SEED + 61).randn(
+        SERVE_BATCH, 3, h, w).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        q(x128)
+    for hd in handles:
+        hd.remove()
+    times = {}
+    for name, xin in big.items():
+        mod = q.get_submodule(name)
+        xq = quant.quantize_activation(xin, mod.act_scale)
+        wq = quant.quantize_weight(mod.weight)[0]
+        got = int8_conv2d(xq, wq, mod.stride, mod.padding).cpu()
+        if not torch.equal(got, int8_conv2d(xq.cpu(), wq.cpu(), mod.stride,
+                                            mod.padding)):
+            raise AssertionError(f"int8_conv2d differs from the CPU at "
+                                 f"{name}, batch {SERVE_BATCH}")
+        wb = mod.weight.to(torch.bfloat16)
+        with torch.no_grad():
+            t = {k: mean(v) for k, v in in_turns({
+                "op": lambda: int8_conv2d(xq, wq, mod.stride, mod.padding),
+                "w8a8 conv": lambda: mod(xin),
+                "cudnn bf16": lambda: F.conv2d(xin, wb, None, mod.stride,
+                                               mod.padding)}, flush).items()}
+        times[name] = t
+        b, c, hh, ww = xin.shape
+        log(f"[int8] {name} at batch {SERVE_BATCH} (input {c}x{hh}x{ww}, "
+            f"weight {tuple(mod.weight.shape)}, stride {mod.stride[0]}): "
+            f"bit-equal to the CPU; int8_conv2d {t['op']:.4f} ms, the whole "
+            f"W8A8 conv {t['w8a8 conv']:.4f} ms, cuDNN bf16 conv "
+            f"{t['cudnn bf16']:.4f} ms (CUDA events, cold L2)")
+    del q, model, codes, big
+    torch.cuda.empty_cache()
+    return dict(n_conv=n_conv, times=times)
+
+
+def int8_eval_step_stats(dev, cfg, start_path: str, batch) -> dict:
+    """13b, beside the sweep: the bf16 and the int8 eval step on one batch,
+    the heatmaps' difference, ms/batch, kernels per step and busy share."""
+    from advmix_tpu_torch.engine.steps import make_eval_step
+    from advmix_tpu_torch.models import get_pose_net, load_model_file
+    from advmix_tpu_torch.models.layers import set_compute_dtype
+    from advmix_tpu_torch.ops import quant
+    from advmix_tpu_torch.ops.int8_conv import int8_conv2d
+
+    model = get_pose_net(cfg)
+    load_model_file(model, start_path)
+    model = model.to(dev).eval()
+    set_compute_dtype(model, torch.bfloat16, trainable=True)
+    x = batch["image"].permute(0, 3, 1, 2)
+    scales = quant.calibrate_act_scales(
+        model, [x], margin=float(cfg.TEST.INT8_CALIB_MARGIN))
+    q = quant.quantize_model(model, scales)
+    model = set_compute_dtype(model, torch.bfloat16)
+    pairs = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12], [13, 14],
+             [15, 16]]
+    out = {}
+    heat = {}
+    for arm, m in (("bf16", model), ("int8", q)):
+        step = make_eval_step(m, cfg, pairs)
+        heat[arm] = step.forward(batch["image"]).float()
+        g0 = int8_conv2d.launches
+        ms = wall_ms(lambda: step(batch), iters=5)
+        gemms = (int8_conv2d.launches - g0) / 8
+        wall_us, by_name = profiled(lambda: step(batch), steps=2)
+        busy = sum(t for t, _ in by_name.values())
+        n = sum(c for _, c in by_name.values()) // 2
+        out[arm] = dict(ms=ms, kernels=n, busy=busy / wall_us,
+                        gemms=gemms)
+        log(f"[int8] eval step {arm} at batch {batch['image'].shape[0]}: "
+            f"{ms:.3f} ms/batch ({batch['image'].shape[0] / ms * 1e3:.1f} "
+            f"img/s), {n} kernels per step, busy {100 * busy / wall_us:.1f}%"
+            f", int8 GEMMs per step {gemms:.0f}")
+    rng = float(heat["bf16"].max() - heat["bf16"].min())
+    err = float((heat["int8"] - heat["bf16"]).abs().max()) / rng
+    mean_err = float((heat["int8"] - heat["bf16"]).abs().mean()) / rng
+    if not (np.isfinite(err) and err < 0.5):
+        raise AssertionError(f"int8 heatmaps off the bf16 ones: {err}")
+    log(f"[int8] int8 vs bf16 heatmaps on the same batch: max |diff| / range "
+        f"{err:.4g}, mean {mean_err:.4g} (range {rng:.4g}; calibrated on "
+        f"that batch, margin {float(cfg.TEST.INT8_CALIB_MARGIN)})")
+    out["heat_err"], out["heat_mean_err"] = err, mean_err
+    del q, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_sweep_path(dev, tmp: str, start_path: str, dataset_cls,
+                    kernel_fns, n_conv: int) -> dict:
+    """13b. `tools/test_corruption.main --on_the_fly` with TEST.INT8 on
+    phase 7's val set. Returns the kernels' launches."""
+    root = os.path.join(tmp, "sweep")
+    argv = ["--cfg", CFG, "--on_the_fly", "--device", str(dev),
+            "--distortions", ",".join(INT8_SWEEP),
+            "--modelDir", os.path.join(tmp, "int8_sweep_out"),
+            "--logDir", os.path.join(tmp, "int8_sweep_log"), "DATASET.ROOT",
+            root, "TEST.MODEL_FILE", start_path, "TEST.INT8", "True"]
+
+    def build(cfg, is_train, image_set=None):
+        return dataset_cls(cfg, is_train, image_set)
+
+    n_pass = 1 + 5 * len(INT8_SWEEP)
+    sw = run_sweep(argv, build, kernel_fns, n_pass=n_pass)
+    launches = sw["launches"]
+    log_path = [f for f in os.listdir(sw["result"]["output_dir"])
+                if f.endswith("_valid.log")]
+    text = "".join(open(os.path.join(sw["result"]["output_dir"], f)).read()
+                   for f in log_path)
+    if f"=> int8 eval: {n_conv} convs calibrated on 2 batch(es)" not in text:
+        raise AssertionError(f"the sweep did not log {n_conv} calibrated "
+                             "convs")
+    if launches["decode_heatmaps"] != n_pass or \
+            launches["oks_matrix_batched"] != n_pass:
+        raise AssertionError(f"int8 sweep launches {launches}")
+    aps = [r[3] for r in sw["result"]["runs"]]
+    log(f"[int8] tools/test_corruption.main --on_the_fly TEST.INT8 True "
+        f"({n_conv} convs calibrated on 2 batches), clean + "
+        f"{', '.join(INT8_SWEEP)} x 5: {n_pass} passes in {sw['wall']:.2f} s"
+        f", APs {', '.join(f'{a:.4f}' for a in aps)} (random weights), "
+        f"launches {launches}")
+    log_sweep_times("int8", sw)
+    return launches
+
+
+def int8_teacher_path(dev, tmp: str, start_path: str, dataset_cls,
+                      kernel_fns, n_conv: int) -> dict:
+    """13c. `tools/train.main --advmix` with TRAIN.INT8_TEACHER for 3
+    iterations of batch 32, and the iteration timed through
+    `tools/bench.time_advmix(int8_teacher=True)`."""
+    from advmix_tpu_torch.config import get_default_config
+    from advmix_tpu_torch.tools import train as train_tool
+    from advmix_tpu_torch.tools.bench import time_advmix
+
+    argv = ["--cfg", CFG, "--advmix", "--sample_times", "3", "--alpha",
+            str(ALPHA), "--adv_loss_weight", str(ADV_W), "--device", str(dev),
+            "--modelDir", os.path.join(tmp, "int8_train_out"), "--logDir",
+            os.path.join(tmp, "int8_train_log"), "--load_from_D", start_path,
+            "DATASET.ROOT", tmp, "TRAIN.END_EPOCH", "1", "PRINT_FREQ", "1",
+            "TRAIN.INT8_TEACHER", "True"]
+
+    def build(cfg, is_train, image_set=None):
+        return dataset_cls(cfg, is_train, image_set)
+
+    for fn in kernel_fns:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = train_tool.main(argv, build_dataset=build)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(kernel_fns)
+    teacher = result["state"].teacher
+    n_q = len(teacher.quantized_paths)
+    if n_q != n_conv:
+        raise AssertionError(f"the teacher has {n_q} quantized convs")
+    (epoch,) = result["history"]
+    if len(epoch) != TRAIN_ITERS or not all(
+            np.isfinite(m["loss_d"]) and np.isfinite(m["loss_g"])
+            for m in epoch):
+        raise AssertionError(f"int8-teacher training: {epoch}")
+    losses = "; ".join(f"{m['loss_d']:.6f} / {m['loss_g']:.6f}"
+                       for m in epoch)
+    log(f"[int8] tools/train.main --advmix TRAIN.INT8_TEACHER True: {n_q} "
+        f"teacher convs quantized, {TRAIN_ITERS} iterations of batch 32 + "
+        f"validate() in {wall:.2f} s; loss_d / loss_g {losses}; launches "
+        f"{launches}")
+    del result, teacher
+    torch.cuda.empty_cache()
+    cfg = get_default_config()
+    cfg.merge_from_file(CFG)
+    cfg.freeze()
+    t = time_advmix(cfg, dev, 32, torch.bfloat16, iters=3, warmup=2,
+                    int8_teacher=True)
+    log(f"[int8] AdvMix iteration with the int8 teacher, batch 32 bf16 "
+        f"(tools/bench.time_advmix --int8_teacher): views "
+        f"{t['views_ms']:.3f} ms, step {t['step_ms']:.3f} ms, both "
+        f"{t['both_ms']:.3f} ms ({t['img_per_s']:.1f} img/s), peak "
+        f"{t['peak_gib']:.2f} GiB, loss_d {t['loss_d']:.6f}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+COCO_PAIRS = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12], [13, 14],
+              [15, 16]]
+EXPORTS = {"b128": ["--batch", str(SERVE_BATCH)], "b0": ["--batch", "0"],
+           "int8": ["--batch", str(SERVE_BATCH), "--int8"],
+           "bottomup": ["--batch", str(BU_SERVE_BATCH)]}
+
+
+def start_exports(dev, tmp: str, start_path: str, images) -> dict:
+    """Phase 13's four exports through `python -m
+    advmix_tpu_torch.tools.export`, started in the background once phase 4
+    has written its weights: the W32 YAML at batch 128, at batch 0 and with
+    --int8 (calibrated through --calib on the first 16 of `images`), and
+    the bottom-up YAML at batch 8 on seeded HigherHRNet weights. Tracing
+    takes the host tens of seconds per program, so they overlap phases
+    5-12. Returns name -> (process, its directory, its log, start time)."""
+    from advmix_tpu_torch.config import get_default_config
+
+    calib = os.path.join(tmp, "calib.npy")
+    np.save(calib, images[:16].cpu().numpy())
+    hcfg = get_default_config()
+    hcfg.merge_from_file(HIGHER_CFG)
+    hcfg.freeze()
+    bu_start = os.path.join(tmp, "bu_export_start.pth")
+    torch.save(random_model(hcfg, dev).state_dict(), bu_start)
+    jobs = {}
+    for name, flags in EXPORTS.items():
+        out_dir = os.path.join(tmp, "export_" + name)
+        cfg_path, weights = ((HIGHER_CFG, bu_start) if name == "bottomup"
+                             else (CFG, start_path))
+        argv = [sys.executable, "-m", "advmix_tpu_torch.tools.export",
+                "--cfg", cfg_path, "--device", str(dev), "--out", out_dir,
+                "--modelDir",
+                os.path.join(tmp, "export_log_" + name), "--logDir",
+                os.path.join(tmp, "export_log_" + name), *flags,
+                "DATASET.ROOT", tmp, "TEST.MODEL_FILE", weights]
+        if name == "int8":
+            argv += ["--calib", calib]
+        log_path = os.path.join(tmp, f"export_{name}.log")
+        with open(log_path, "w") as f:
+            jobs[name] = (subprocess.Popen(
+                argv, cwd=HERE, stdout=f, stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONPATH=HERE)), out_dir, log_path,
+                time.time())
+    # a phase that fails before phase 13 leaves none of them running
+    atexit.register(lambda: [job[0].kill() for job in jobs.values()
+                             if job[0].poll() is None])
+    log(f"[serve] started {len(jobs)} exports in the background: "
+        f"{', '.join(jobs)}")
+    return jobs
+
+
+def finish_exports(jobs: dict) -> dict:
+    """Wait for the exports; fail with the log of any that failed. Returns
+    name -> (directory, seconds from its start to its log's last line)."""
+    out = {}
+    for name, (proc, out_dir, log_path, t0) in jobs.items():
+        try:
+            rc = proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise
+        with open(log_path) as f:
+            text = f.read()
+        if rc != 0 or "round trip OK" not in text:
+            raise AssertionError(f"export {name} failed (rc {rc}):\n"
+                                 + text[-3000:])
+        took = os.path.getmtime(log_path) - t0
+        mb = os.path.getsize(os.path.join(out_dir, "pose_infer.pt2")) / 1e6
+        log(f"[serve] export {name}: {took:.1f} s in the background, "
+            f"pose_infer.pt2 {mb:.1f} MB; "
+            + " | ".join(ln.split(" => ", 1)[-1] for ln in text.splitlines()
+                         if "round trip OK" in ln))
+        out[name] = (out_dir, took)
+    return out
+
+
+def serve_path(dev, tmp: str, start_path: str, batch, exports: dict,
+               kernel_fns) -> dict:
+    """13d. The three W32 exports served by PoseServer: the predictions at
+    batch 128 equal the eval step's on the same batch bit for bit (the
+    int8 one's: the quantized model rebuilt from its final_state and
+    int8_scales.json), decode launches once per predict, a padded partial
+    batch equals the full batch's rows; one request over HTTP. The eval
+    step runs on the server's device thread (`PoseServer.call`): PyTorch
+    keeps cuDNN's plans per thread, and a thread with other plans sums
+    bf16 otherwise. Returns the kernels' launches on the path: the
+    servers' warm-ups, the eval steps compared and every predict."""
+    import io
+    import threading
+    import urllib.request
+
+    from advmix_tpu_torch.config import get_default_config
+    from advmix_tpu_torch.engine.steps import make_eval_step
+    from advmix_tpu_torch.models import get_pose_net, load_model_file
+    from advmix_tpu_torch.models.layers import set_compute_dtype
+    from advmix_tpu_torch.ops import quant
+    from advmix_tpu_torch.ops.cuda.decode_kernel import decode_heatmaps
+    from advmix_tpu_torch.tools import export as export_tool
+    from advmix_tpu_torch.tools import serve as serve_tool
+
+    cfg = get_default_config()
+    cfg.merge_from_file(CFG)
+    cfg.freeze()
+    images = batch["image"].cpu().numpy()
+    for fn in kernel_fns:
+        fn.launches = 0
+    for name in ("b128", "b0", "int8"):
+        out_dir = exports[name][0]
+        model = get_pose_net(cfg)
+        load_model_file(model, start_path)
+        model = model.to(dev).eval()
+        if name == "int8":
+            set_compute_dtype(model, torch.bfloat16, trainable=True)
+            with open(os.path.join(out_dir, export_tool.INT8_SCALES)) as f:
+                scales = json.load(f)
+            model, _ = quant.prequantize_params(model, scales)
+            model.load_state_dict(torch.load(
+                os.path.join(out_dir, "final_state"), map_location=dev))
+        else:
+            model = set_compute_dtype(model, torch.bfloat16)
+        t0 = time.perf_counter()
+        server = serve_tool.PoseServer(out_dir, str(dev))
+        load_s = time.perf_counter() - t0
+        step = make_eval_step(model, cfg, COCO_PAIRS)
+        before = decode_heatmaps.launches
+        got = server.predict(images)
+        if decode_heatmaps.launches != before + 1:
+            raise AssertionError("a predict did not launch decode once")
+        if got.shape != (SERVE_BATCH, 17, 3) or not np.isfinite(got).all():
+            raise AssertionError(f"served {got.shape}")
+
+        @torch.no_grad()
+        def eager():
+            c, m = decode_heatmaps(step.forward(batch["image"]), True)
+            return torch.cat([c, m], -1).cpu().numpy()
+
+        want = server.call(eager)
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"{name}: served predictions differ from the eval step's "
+                f"by {float(np.abs(got - want).max())}")
+        part = server.predict(images[:37])
+        if name != "b0" and not np.array_equal(part, got[:37]):
+            raise AssertionError(f"{name}: a padded batch of 37 differs")
+        ms = wall_ms(lambda: server.predict(images), iters=5)
+        log(f"[serve] {name}: load + warm-up {load_s:.1f} s; predict at "
+            f"batch {SERVE_BATCH} equals the eval step's bit for bit, decode "
+            f"launched once per predict; {ms:.3f} ms per predict "
+            f"({SERVE_BATCH / ms * 1e3:.1f} img/s, host copies included; "
+            f"the eval step in this thread "
+            f"{wall_ms(lambda: step(batch), iters=5):.3f} ms)")
+        if name == "b0":
+            httpd = serve_tool.make_http_server(server, "127.0.0.1", 0)
+            th = threading.Thread(target=httpd.serve_forever, daemon=True)
+            th.start()
+            try:
+                base = f"http://127.0.0.1:{httpd.server_port}"
+                info = json.loads(urllib.request.urlopen(
+                    base + "/healthz", timeout=60).read())
+                buf = io.BytesIO()
+                np.save(buf, images[:7])
+                body = urllib.request.urlopen(urllib.request.Request(
+                    base + "/predict", data=buf.getvalue()),
+                    timeout=120).read()
+                if not np.array_equal(np.load(io.BytesIO(body)),
+                                      server.predict(images[:7])):
+                    raise AssertionError("HTTP /predict differs")
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+            th.join(timeout=10)
+            log(f"[serve] HTTP on localhost: /healthz {info}; /predict of 7 "
+                "images equals predict()")
+        server.close()
+        del server, model, step
+        torch.cuda.empty_cache()
+    launches = launch_counts(kernel_fns)
+    if launches["oks_matrix_batched"] or launches["oks_matrix"]:
+        raise AssertionError(f"OKS launched while serving: {launches}")
+    return launches
+
+
+def serve_bottomup_path(dev, tmp: str, exports: dict, kernel_fns) -> dict:
+    """13e. The bottom-up export (512x512, batch 8, one scale) served: its
+    named outputs on phase 12's val batch equal `bottomup_infer_fn`'s on
+    the same weights, bit for bit. Returns the launches (all 0)."""
+    from advmix_tpu_torch.config import get_default_config
+    from advmix_tpu_torch.engine.steps import bottomup_infer_fn
+    from advmix_tpu_torch.models import get_pose_net, load_model_file
+    from advmix_tpu_torch.models.layers import set_compute_dtype
+    from advmix_tpu_torch.tools import serve as serve_tool
+
+    cfg = get_default_config()
+    cfg.merge_from_file(HIGHER_CFG)
+    cfg.DATASET.ROOT = os.path.join(tmp, "bottomup")
+    cfg.freeze()
+    for fn in kernel_fns:
+        fn.launches = 0
+    model = get_pose_net(cfg)
+    load_model_file(model, os.path.join(tmp, "bu_export_start.pth"))
+    model = set_compute_dtype(model.to(dev).eval(), torch.bfloat16)
+    image = bottomup_batch(cfg, dev, n=BU_SERVE_BATCH)
+    server = serve_tool.PoseServer(exports["bottomup"][0], str(dev))
+    got = server.predict(image.cpu().numpy())
+    # on the server's device thread, whose cuDNN plans served `got`
+    heat, tags, peaks = server.call(bottomup_infer_fn(
+        model, cfg, COCO_PAIRS, scales=(1.0,)), image)
+    want = {"heat": heat, "tags": tags, "peak_x": peaks["x"],
+            "peak_y": peaks["y"], "peak_val": peaks["val"],
+            "peak_tag": peaks["tag"]}
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"bottom-up outputs {sorted(got)}")
+    for k, v in want.items():
+        if not np.array_equal(got[k], v.cpu().numpy()):
+            raise AssertionError(f"bottom-up {k} differs from "
+                                 "bottomup_infer_fn's")
+    ms = wall_ms(lambda: server.predict(image.cpu().numpy()), iters=3)
+    shapes = {k: tuple(v.shape) for k, v in got.items()}
+    log(f"[serve] bottom-up {os.path.relpath(HIGHER_CFG, HERE)} batch "
+        f"{BU_SERVE_BATCH}: outputs {shapes} equal bottomup_infer_fn's bit "
+        f"for bit; {ms:.3f} ms per predict")
+    server.close()
+    del server, model
+    torch.cuda.empty_cache()
+    launches = launch_counts(kernel_fns)
+    if any(launches.values()):
+        raise AssertionError(f"bottom-up serving launched {launches}")
+    return launches
+
+
+def serving_bench_arms() -> dict:
+    """13f. `tools/serving_bench.main` on the bf16, int8 and int8pre arms
+    of the W32 YAML at batch 128."""
+    from advmix_tpu_torch.ops.int8_conv import int8_conv2d
+    from advmix_tpu_torch.tools import serving_bench
+
+    out = {}
+    for arm in serving_bench.ARMS:
+        g0 = int8_conv2d.launches
+        r = serving_bench.main(["--cfg", CFG, "--arm", arm, "--batch",
+                                str(SERVE_BATCH), "--steps",
+                                str(SERVING_STEPS)])
+        gemms = (int8_conv2d.launches - g0) / (3 + 2 * SERVING_STEPS)
+        out[arm] = r
+        log(f"[serving_bench] {arm}: {r['value']:.1f} img/s, "
+            f"{r['ms_per_batch']:.3f} ms/batch (windows "
+            f"{', '.join(f'{v:.1f}' for v in r['windows'])}), int8 GEMMs per "
+            f"step {gemms:.0f}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def int8_serving_phase(dev, tmp: str, start_path: str, dataset_cls,
+                       kernel_fns, flush, batch, export_jobs) -> dict:
+    """Phase 13. Returns the kernels' launches on each new path."""
+    from advmix_tpu_torch.config import get_default_config
+    from advmix_tpu_torch.models import get_pose_net
+    from advmix_tpu_torch.ops.quant import conv_paths
+
+    t_phase = time.perf_counter()
+    took = {}
+
+    def lap(name):
+        took[name] = time.perf_counter() - t_phase - sum(took.values())
+
+    cfg = get_default_config()
+    cfg.merge_from_file(CFG)
+    cfg.freeze()
+    # 292 of HRNet-W32's 293 convs: all but final_layer
+    n_conv = len(conv_paths(get_pose_net(cfg)))
+    checks = int8_conv_checks(dev, cfg, start_path, flush)
+    if checks["n_conv"] != n_conv:
+        raise AssertionError(f"{checks['n_conv']} of {n_conv} convs "
+                             "quantized")
+    lap("13a int8_conv2d checks")
+    int8_eval_step_stats(dev, cfg, start_path, batch)
+    lap("13b eval steps")
+    out = {"int8_sweep": int8_sweep_path(dev, tmp, start_path, dataset_cls,
+                                         kernel_fns, n_conv)}
+    lap("13b sweep")
+    out["int8_teacher_train"] = int8_teacher_path(
+        dev, tmp, start_path, dataset_cls, kernel_fns, n_conv)
+    lap("13c int8 teacher")
+    exports = finish_exports(export_jobs)
+    lap("waiting for the exports")
+    out["serve"] = serve_path(dev, tmp, start_path, batch, exports,
+                              kernel_fns)
+    lap("13d serve")
+    out["serve_bottomup"] = serve_bottomup_path(dev, tmp, exports,
+                                                kernel_fns)
+    lap("13e serve bottom-up")
+    serving_bench_arms()
+    lap("13f serving_bench")
+    log(f"[int8] phase 13: {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
+    return out
+
+
 def card_matches_cpu(name: str, model, dev, image_size) -> None:
     """The model on the card against the same model on the CPU on one
     seeded random image, leaving it f32 on the card. In float64 the two
@@ -2610,6 +3201,9 @@ def main() -> None:
         ms_in_step=in_step, ms_after_forward=after["vector"],
         first_design_ms_after_forward=after["scalar"])
 
+    # phase 13's exports trace on the host while phases 5-12 run
+    export_jobs = start_exports(dev, tmp, start_path, batch["image"])
+
     # ---- 5. AdvMix training through the train entry point -----------------
     del model, eval_step, batch, heat
     torch.cuda.empty_cache()
@@ -2644,6 +3238,12 @@ def main() -> None:
 
     # ---- 12. bottom-up HigherHRNet-W32 512x512 ----------------------------
     paths.update(bottomup_phase(dev, tmp, kernel_fns))
+
+    # ---- 13. int8 W8A8 eval, the int8 teacher, export and serving ---------
+    paths.update(int8_serving_phase(dev, tmp, start_path, SyntheticCropCOCO,
+                                    kernel_fns, flush,
+                                    first_batch(loader, prep, dev),
+                                    export_jobs))
 
     kernels = []
     for k in ("decode_heatmaps", "oks_matrix_batched", "oks_matrix"):

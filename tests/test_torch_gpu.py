@@ -16,7 +16,10 @@ of 0.25), at COCO's and MPII's shapes; soft-argmax (plain PyTorch) within
 may differ in the last bit. Keep lists: equal. Corruptions (plain PyTorch on
 the card, no hand kernel): the card and the CPU at most 1 uint8 level apart
 on at most 0.5% of values. The bottom-up infer (plain PyTorch, no hand
-kernel) in float64: the card equals the CPU to 1e-12 of the range.
+kernel) in float64: the card equals the CPU to 1e-12 of the range. The
+int8 convolution (im2col + `torch._int_mm`, a library GEMM) is bit-equal
+to its CPU route, a float64 convolution of the codes; an exported program
+launches the decode kernel once per call.
 """
 
 import numpy as np
@@ -383,3 +386,76 @@ def test_cuda_bottomup_infer_float64_matches_cpu(cuda, scales):
     assert r["shape"] == (1, 17, 128, 128)
     assert r["heat"] < 1e-12 and r["tags"] < 1e-12, r
     assert r["n_above"] > 0 and r["same_pixels"] and r["peak_val"] < 1e-12, r
+
+
+INT8_CONVS = [  # batch, cin, h, w, cout, kernel, stride, padding
+    (2, 3, 256, 192, 32, 3, 2, 1),     # HRNet's stem: depth 27
+    (2, 64, 64, 48, 64, 3, 1, 1),
+    (2, 32, 64, 48, 64, 3, 2, 1),
+    (2, 256, 64, 48, 64, 1, 1, 0),     # the channels-last reshape only
+    (1, 256, 8, 6, 256, 3, 1, 1),      # 48 rows
+    (3, 40, 5, 7, 20, 3, 1, 1),        # 105 rows, width 20: all padded
+    (1, 8, 3, 3, 12, 1, 1, 0),         # 9 rows
+    (7, 64, 2, 2, 64, 3, 2, 1),        # 7 rows, a polymorphic batch
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", INT8_CONVS)
+def test_cuda_int8_conv2d_matches_cpu(cuda, shape):
+    from advmix_tpu_torch.ops.int8_conv import int8_conv2d
+
+    b, c, h, w, o, k, s, p = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randint(-127, 128, (b, c, h, w), generator=g, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (o, c, k, k), generator=g,
+                       dtype=torch.int8)
+    before = int8_conv2d.launches
+    got = int8_conv2d(x.to(cuda), wq.to(cuda), [s, s], [p, p])
+    assert int8_conv2d.launches == before + 1
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got.cpu(), int8_conv2d(x, wq, [s, s], [p, p]))
+
+
+@pytest.mark.gpu
+def test_cuda_quantized_model_matches_cpu(cuda):
+    """PoseResNet-18 64x64 W8A8 in f32 on the card and on the CPU: the
+    same int8 codes go in, the same int32 sums come out; the rest is cuDNN
+    against the CPU, so within 1e-4 of the range."""
+    from advmix_tpu_torch.config import load_config
+    from advmix_tpu_torch.models import get_pose_net, he_reinit_convs
+    from advmix_tpu_torch.ops import quant
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config("experiments/synthetic/res18_64x64_smoke.yaml")
+    model = get_pose_net(cfg)
+    he_reinit_convs(model, torch.Generator().manual_seed(1))
+    x = torch.from_numpy(np.random.RandomState(2).randn(4, 3, 64, 64)
+                         .astype(np.float32))
+    q = quant.quantize_model(model.eval(),
+                             quant.calibrate_act_scales(model.eval(), [x]))
+    with torch.no_grad():
+        ref = q(x)
+        got = q.to(cuda)(x.to(cuda)).cpu()
+    rng = float(ref.max() - ref.min())
+    assert float((got - ref).abs().max()) <= 1e-4 * rng
+
+
+@pytest.mark.gpu
+def test_cuda_exported_program_launches_decode(cuda, tmp_path):
+    from advmix_tpu_torch.tools import export as export_tool
+    from advmix_tpu_torch.tools import serve as serve_tool
+
+    export_tool.main([
+        "--cfg", "experiments/synthetic/res18_64x64_smoke.yaml", "--batch",
+        "0", "--out", str(tmp_path / "e"), "--int8"])
+    server = serve_tool.PoseServer(str(tmp_path / "e"))
+    assert server.device.type == "cuda"
+    x = np.random.RandomState(3).randn(5, 64, 64, 3).astype(np.float32)
+    before = decode_heatmaps.launches
+    first = server.predict(x)
+    assert decode_heatmaps.launches == before + 1
+    assert np.array_equal(first, server.predict(x))
+    assert decode_heatmaps.launches == before + 2
+    with pytest.raises(ValueError, match="exported on cuda"):
+        serve_tool.PoseServer(str(tmp_path / "e"), "cpu")

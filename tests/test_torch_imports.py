@@ -196,3 +196,41 @@ def test_bottomup_entry_points_without_card_raise(tmp_path, tool, args):
     assert proc.returncode != 0
     assert "no CUDA device is available" in proc.stderr
     assert not os.listdir(tmp_path)
+
+
+SERVING_MODULES = [("ops.quant", "advmix_tpu/ops/quant.py"),
+                   ("ops.int8_conv", "advmix_tpu/ops/quant.py"),
+                   ("tools.export", "tools/export.py"),
+                   ("tools.serve", "tools/serve.py"),
+                   ("tools.serving_bench", "tools/serving_bench.py")]
+
+
+@pytest.mark.parametrize("name,counterpart", SERVING_MODULES)
+def test_int8_and_serving_modules_name_their_jax_counterpart(name,
+                                                             counterpart):
+    """Each module of the int8 and serving slice documents which JAX module
+    it ports, and imports neither jax nor the JAX package (nor flax or
+    orbax), at module level or inside a function."""
+    path = os.path.join(ROOT, "advmix_tpu_torch", *name.split(".")) + ".py"
+    src = open(path).read()
+    assert counterpart in src.split('"""')[1]
+    for line in src.splitlines():
+        assert not line.strip().startswith((
+            "import jax", "from jax", "import flax", "from flax",
+            "import orbax", "from advmix_tpu ", "from advmix_tpu.",
+            "import advmix_tpu ", "import advmix_tpu.")), line
+
+
+@pytest.mark.parametrize("tool,args", [
+    ("export", ["--cfg", W32]),
+    ("serve", ["--export_dir", "."]),
+    ("serving_bench", ["--cfg", W32]),
+])
+def test_serving_entry_points_without_card_raise(tmp_path, tool, args):
+    proc = subprocess.run(
+        [sys.executable, "-m", f"advmix_tpu_torch.tools.{tool}", *args],
+        cwd=str(tmp_path), env=NO_CARD, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr
+    assert not os.listdir(tmp_path)

@@ -1,8 +1,8 @@
 """The port's train entry point, `python -m advmix_tpu_torch.tools.train
 --device cpu`, on experiments/synthetic/res18_64x64_smoke.yaml: standard and
 AdvMix training run, checkpoint, resume and export; the validate entry point
-reads the export back; the int8 option of a later slice stops with its
-message, also on the bottom-up configs; the reference's own AdvMix command
+reads the export back; TRAIN.INT8_TEACHER, once stopped as a later
+slice's option, runs on every config; the reference's own AdvMix command
 (scripts/train.sh) parses, and each flag the reference parses and never
 reads is accepted with a warning that names it; a directory as
 TEST.MODEL_FILE (a JAX orbax final_state) stops validate and the sweep; and
@@ -107,33 +107,41 @@ def test_train_checkpoints_resumes_and_exports(tmp_path, monkeypatch, mode):
     assert opt and all(float(s["step"]) == 4 for s in opt.values())
 
 
-INT8 = "not ported yet: TRAIN.INT8_TEACHER needs ops/quant.py: the int8 " \
-    "and serving slice"
+class _Reached(Exception):
+    """Raised by a stub `build_dataset`: the run got past its options."""
 
 
-@pytest.mark.parametrize("args,message", [
-    (["TRAIN.INT8_TEACHER", "True", "DATASET.DATASET", "bottomup_coco"],
-     INT8),
-    (["TRAIN.INT8_TEACHER", "True", "DATASET.DATASET", "ochuman"], INT8),
-    (["TRAIN.INT8_TEACHER", "True"], INT8),
-    (["TRAIN.INT8_TEACHER", "True", "MODEL.NAME", "pose_higher_hrnet"],
-     INT8),
+def _stop_at_datasets(cfg, is_train, image_set):
+    raise _Reached
+
+
+@pytest.mark.parametrize("cfg_path,args", [
+    (SMOKE, ["TRAIN.INT8_TEACHER", "True", "DATASET.DATASET",
+             "bottomup_coco"]),
+    (SMOKE, ["TRAIN.INT8_TEACHER", "True", "DATASET.DATASET", "ochuman"]),
+    (SMOKE, ["TRAIN.INT8_TEACHER", "True"]),
+    (HIGHER, ["TRAIN.INT8_TEACHER", "True"]),
 ])
 def test_later_slice_options_stop_with_their_message(tmp_path, monkeypatch,
-                                                     args, message):
-    """The int8 arm is the only one left: the bottom-up names are ported
-    and no longer appear in the message."""
+                                                     cfg_path, args):
+    """TRAIN.INT8_TEACHER was the last option of a later slice, and it is
+    ported: on none of these configs does it stop the run any more, which
+    goes on to build its datasets (stopped there by a stub)."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit) as err:
-        train_tool.main(["--cfg", SMOKE, "--device", "cpu", *args])
-    assert str(err.value) == message
-    assert not os.listdir(tmp_path)  # it stopped before writing anything
+    with pytest.raises(_Reached):
+        train_tool.main(["--cfg", cfg_path, "--device", "cpu", *args],
+                        build_dataset=_stop_at_datasets)
 
 
 def test_later_slice_flag_exits_nonzero(tmp_path):
-    log = _run("train", tmp_path, "--device", "cpu", "TRAIN.INT8_TEACHER",
-               "True", ok=False)
-    assert "not ported yet: TRAIN.INT8_TEACHER" in log
+    """`python -m` with TRAIN.INT8_TEACHER under --advmix: it once exited
+    non-zero as not ported; now it trains with the W8A8 teacher."""
+    log = _run("train", tmp_path, "--device", "cpu", "--advmix",
+               "--sample_times", "3", "--downsamples", "4",
+               "TRAIN.INT8_TEACHER", "True", *SMALL)
+    assert "not ported yet" not in log
+    assert "=> int8 teacher: 20 convs calibrated" in log
+    assert "Epoch: [0][1/2]" in log
 
 
 def test_train_without_card_raises(tmp_path):
