@@ -4,7 +4,9 @@ The port's own copy of `advmix_tpu/config/config.py`: the same tree, the
 same defaults and the same merge rules, so every YAML in `experiments/`
 loads unchanged and both packages read identical config trees. Keys that
 only shape the JAX program (`MODEL.EXTRA.USE_SCAN`, `MODEL.EXTRA.REMAT`,
-`GPUS`, `TRAIN.CROSS_REPLICA_BN`) are accepted and ignored here.
+`GPUS`) are accepted and ignored here; `TRAIN.CROSS_REPLICA_BN` makes the
+train steps' BatchNorm statistics cross-replica when there are several
+ranks (`models/layers.cross_replica_bn`).
 """
 
 from __future__ import annotations
@@ -43,6 +45,11 @@ class ConfigNode(dict):
         if object.__getattribute__(self, "_frozen"):
             raise AttributeError(f"ConfigNode is frozen; cannot set {key}")
         super().__setitem__(key, value)
+
+    def __reduce__(self):
+        # rebuilt through __init__, so a pickled config (a rank's result)
+        # loads back, frozen as it was
+        return (_unpickle_node, (dict(self), self._frozen))
 
     # -- lifecycle ----------------------------------------------------------
     def freeze(self) -> None:
@@ -108,6 +115,13 @@ class ConfigNode(dict):
         }
 
 
+def _unpickle_node(items: dict, frozen: bool) -> ConfigNode:
+    node = ConfigNode(items)
+    if frozen:
+        node.freeze()
+    return node
+
+
 def _coerce(old: Any, new: Any) -> Any:
     """Coerce a new value toward the old value's type (yacs-like leniency)."""
     if old is None:
@@ -127,7 +141,7 @@ def get_default_config() -> ConfigNode:
     c.OUTPUT_DIR = ""
     c.LOG_DIR = ""
     c.DATA_DIR = ""
-    c.GPUS = (0,)  # kept for YAML compat; the port runs on one device
+    c.GPUS = (0,)  # kept for YAML compat; --num_devices picks the cards
     c.WORKERS = 4
     c.PRINT_FREQ = 20
     c.AUTO_RESUME = False

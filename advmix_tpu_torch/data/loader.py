@@ -1,6 +1,6 @@
 """Batching loader with a thread pool and background prefetch.
 
-Port of `advmix_tpu/data/loader.py` for one process. Samples come from a
+Port of `advmix_tpu/data/loader.py`. Samples come from a
 thread pool sized to the host's cores (cv2 and numpy release the GIL during
 decode and warp), `prefetch + 1` batches are in flight, and batches are
 yielded strictly in order as dicts of stacked numpy arrays. Sample i of
@@ -10,6 +10,13 @@ JAX Loader's per-sample stream, and a shuffled epoch's order from
 seed. The last partial batch is padded by repeating its last sample (or
 dropped with `drop_last`), with `_n` holding the real count and `_indices`
 the dataset indices.
+
+Over several ranks (`num_shards`, `shard_index`) every rank computes the
+same seeded global order and keeps its contiguous `batch_size` rows of each
+global batch of `batch_size * num_shards`, the rows a `P("data")` shard of
+the JAX mesh holds; `len()` counts global batches. A rank whose slice of
+the last global batch is empty repeats that batch's last index with
+`_n == 0`, so every rank takes the same number of steps.
 """
 
 from __future__ import annotations
@@ -77,7 +84,8 @@ class Loader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
                  num_threads: int | None = None, prefetch: int = 2,
-                 raw_mode: bool = False, bucket_hw=(640, 640)):
+                 raw_mode: bool = False, bucket_hw=(640, 640),
+                 num_shards: int = 1, shard_index: int = 0):
         if num_threads is None:
             num_threads = max(2, min(64, os.cpu_count() or 2))
         self.dataset = dataset
@@ -89,13 +97,16 @@ class Loader:
         self.prefetch = prefetch
         self.raw_mode = raw_mode
         self.bucket_hw = tuple(bucket_hw)
+        self.num_shards = max(1, num_shards)
+        self.shard_index = shard_index
         self.epoch = 0
 
     def __len__(self):
         n = len(self.dataset)
+        gbs = self.batch_size * self.num_shards
         if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+            return n // gbs
+        return (n + gbs - 1) // gbs
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -106,9 +117,8 @@ class Loader:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
         return idx
 
-    def _assemble(self, samples, bidx) -> dict:
-        real = len(samples)
-        samples = samples + [samples[-1]] * (self.batch_size - real)
+    def _assemble(self, samples, bidx, real: int) -> dict:
+        samples = samples + [samples[-1]] * (self.batch_size - len(samples))
         batch = {}
         for k in samples[0]:
             vals = [s[k] for s in samples]
@@ -119,15 +129,27 @@ class Loader:
         batch["_n"] = real
         full = np.asarray(bidx, np.int64)
         batch["_indices"] = np.concatenate(
-            [full, np.full(self.batch_size - real, full[-1], np.int64)])
+            [full, np.full(self.batch_size - len(full), full[-1], np.int64)])
         return batch
 
-    def __iter__(self) -> Iterator[dict]:
+    def _batches(self) -> list:
+        """This rank's (indices, real count) of every global batch."""
         indices = self._indices()
-        batches = [indices[s: s + self.batch_size]
-                   for s in range(0, len(indices), self.batch_size)]
-        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
-            batches.pop()
+        gbs = self.batch_size * self.num_shards
+        out = []
+        for start in range(0, len(indices), gbs):
+            chunk = indices[start: start + gbs]
+            if len(chunk) < gbs and self.drop_last:
+                continue
+            mine = chunk[self.shard_index * self.batch_size:
+                         (self.shard_index + 1) * self.batch_size]
+            # an empty slice repeats the global batch's last index, the one
+            # the rank holding the partial slice pads with
+            out.append((mine, len(mine)) if len(mine) else (chunk[-1:], 0))
+        return out
+
+    def __iter__(self) -> Iterator[dict]:
+        batches = self._batches()
         base = self.seed * 100003 + self.epoch
 
         def one(i: int):
@@ -138,22 +160,25 @@ class Loader:
             return self.dataset.get_sample(int(i), rng)
 
         if self.num_threads <= 1:
-            for bidx in batches:
-                yield self._assemble([one(i) for i in bidx], bidx)
+            for bidx, real in batches:
+                yield self._assemble([one(i) for i in bidx], bidx, real)
             return
 
         window = max(1, self.prefetch) + 1
         with ThreadPoolExecutor(max_workers=self.num_threads) as ex:
             inflight: deque = deque()
             todo = iter(batches)
-            for bidx in todo:
-                inflight.append(([ex.submit(one, i) for i in bidx], bidx))
+            for bidx, real in todo:
+                inflight.append(([ex.submit(one, i) for i in bidx], bidx,
+                                 real))
                 if len(inflight) >= window:
                     break
             while inflight:
-                futs, bidx = inflight.popleft()
-                batch = self._assemble([f.result() for f in futs], bidx)
+                futs, bidx, real = inflight.popleft()
+                batch = self._assemble([f.result() for f in futs], bidx,
+                                       real)
                 nxt = next(todo, None)
                 if nxt is not None:
-                    inflight.append(([ex.submit(one, i) for i in nxt], nxt))
+                    inflight.append(([ex.submit(one, i) for i in nxt[0]],
+                                     *nxt))
                 yield batch

@@ -9,6 +9,10 @@ score; `model_best.pth`, D's state dict at the best epoch; and
 which `models.load_model_file` and the validate entry point read back. The
 JAX package's orbax directories are not reproduced; its weights come in
 through `models/convert.py`.
+
+Over several ranks, rank 0 writes every file and the others wait for it at
+a barrier; a restore loads the file on every rank and then broadcasts
+rank 0's modules (`parallel/dist.py`).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel import dist as pdist
 from .state import AdvMixState
 
 
@@ -46,13 +51,16 @@ class CheckpointManager:
         self.path = os.path.join(self.dir, "checkpoint.pth")
 
     def save(self, epoch: int, state, perf: float, is_best: bool) -> None:
-        payload = {"epoch": int(epoch), "perf": float(perf),
-                   "step": int(state.step)}
-        payload.update({k: m.state_dict() for k, m in _modules(state).items()})
-        _write(payload, self.path)
-        if is_best:
-            _write(_pose_model(state).state_dict(),
-                   os.path.join(self.dir, "model_best.pth"))
+        if pdist.is_main():
+            payload = {"epoch": int(epoch), "perf": float(perf),
+                       "step": int(state.step)}
+            payload.update({k: m.state_dict()
+                            for k, m in _modules(state).items()})
+            _write(payload, self.path)
+            if is_best:
+                _write(_pose_model(state).state_dict(),
+                       os.path.join(self.dir, "model_best.pth"))
+        pdist.barrier()
 
     def restore(self, state) -> Optional[dict]:
         """Load the last checkpoint into `state` (AUTO_RESUME). Returns
@@ -64,6 +72,8 @@ class CheckpointManager:
         payload = torch.load(self.path, map_location="cpu")
         for k, m in _modules(state).items():
             m.load_state_dict(payload[k])
+            if isinstance(m, torch.nn.Module):
+                pdist.broadcast_module_(m)
         state.step = int(payload["step"])
         return {"epoch": payload["epoch"], "perf": payload["perf"]}
 
@@ -73,6 +83,8 @@ def export_final_state(output_dir: str, state,
     """The final weights (`tools/train.py:331-337`): D's whole state dict,
     f32, on the CPU."""
     path = os.path.join(output_dir, name)
-    _write({k: v.detach().cpu() for k, v in
-            _pose_model(state).state_dict().items()}, path)
+    if pdist.is_main():
+        _write({k: v.detach().cpu() for k, v in
+                _pose_model(state).state_dict().items()}, path)
+    pdist.barrier()
     return path

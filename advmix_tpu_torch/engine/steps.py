@@ -1,9 +1,18 @@
 """The train, AdvMix and eval steps, top-down and bottom-up.
 
-Port of `advmix_tpu/engine/steps.py` for one device. The JAX steps are
-functions `state -> state` compiled under `shard_map`; here a step mutates
-the state's modules and optimizers, and the `pmean`/`psum` over the data
-axis have no counterpart on one card and are left out.
+Port of `advmix_tpu/engine/steps.py`. The JAX steps are functions
+`state -> state` compiled under `shard_map` over the "data" mesh axis; here
+a step mutates the state's modules and optimizers. Each step takes the
+data `group` of several ranks (`parallel/dist.py`; None for one rank, which
+runs no collective) and makes the JAX step's collectives explicitly:
+gradients are averaged before each optimizer step, D's BatchNorm running
+statistics after it (and, in the AdvMix step, again after the G step's D
+forward), the losses averaged, and the PCK counts summed before they are
+finalized (`steps.py:142-155, 264-304, 504-514, 725-751`). Under
+TRAIN.CROSS_REPLICA_BN the train steps' BatchNorms take their batch
+statistics over the group (`models/layers.cross_replica_bn`, JAX
+`_bn_axis_for` / `_with_bn_axis`); by default they are per replica, as
+with the reference's DataParallel.
 
 - standard step (`lib/core/function.py:30-95`): forward, loss, backward,
   optimizer step, PCK on the device.
@@ -17,7 +26,8 @@ the one-pixel shift, the per-sample loss and PCK sums with the padded-tail
 (`ops/cuda/decode_kernel.py`, the counterpart of the Pallas kernel the JAX
 step uses on a TPU) or, under TEST.SOFT_ARGMAX, the soft-argmax
 (`ops/heatmap.py`; the decode kernel does not run), and the device inverse
-affine. The JAX step's `psum`s over replicas become plain sums here.
+affine. Its loss (sum(loss * valid) / sum(valid)) and PCK counts are
+summed over the ranks, as the JAX step's `psum`s.
 
 With `debug=True` each step also returns `heatmap_debug.debug_outputs` of
 its heatmaps (and the AdvMix step the mix), device tensors that the trainer
@@ -41,10 +51,12 @@ makes them. Heatmaps are NCHW, and targets come in NCHW (B, J, Hh, Hw) from
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
 
+from ..models.layers import cross_replica_bn
 from ..ops.ae import ae_loss, aggregate_heatmaps, bottomup_heatmap_loss, \
     generate_bottomup_target, resize_bilinear, top_k_peaks
 from ..ops.cuda.decode_kernel import decode_heatmaps
@@ -54,6 +66,8 @@ from ..ops.losses import joints_loss, joints_loss_per_sample, \
     joints_ohkm_loss, joints_ohkm_loss_per_sample
 from ..ops.transforms import flip_back, shift_heatmap_right, \
     transform_preds_batch
+from ..parallel.dist import all_reduce_mean_, all_reduce_sum_, \
+    average_buffers_, grads_of
 from .heatmap_debug import debug_outputs
 
 
@@ -84,22 +98,51 @@ def _per_sample_loss_fn_for(cfg):
         out, tgt, tw, use_tw, crit)
 
 
-def _pck(out, target):
+def _pck(out, target, group=None):
+    """PCK of the batch; over several ranks the per-joint counts are summed
+    before they are finalized (a mean of the ranks' averages would weigh
+    them alike whatever their valid counts)."""
     with torch.no_grad():
         hit_j, val_j = pck_sums(out, target)
+        if group is not None:
+            all_reduce_sum_([hit_j, val_j], group)
         _, acc, cnt = pck_from_sums(hit_j, val_j)
     return acc, cnt
+
+
+def _mean_metrics(metrics: dict, keys, group) -> dict:
+    """`lax.pmean` of the named (detached) metrics."""
+    if group is not None:
+        all_reduce_mean_([metrics[k] for k in keys], group)
+    return metrics
+
+
+def _with_bn_group(step, cfg, group):
+    """The step with cross-replica BatchNorm statistics over `group` under
+    TRAIN.CROSS_REPLICA_BN (JAX `_bn_axis_for` + `_with_bn_axis`); per
+    replica otherwise, and always for one rank."""
+    if group is None or not bool(cfg.TRAIN.CROSS_REPLICA_BN):
+        return step
+
+    @functools.wraps(step)
+    def wrapped(*a, **k):
+        with cross_replica_bn(group):
+            return step(*a, **k)
+
+    wrapped.__dict__ = step.__dict__  # step.last_mix_weights, as set
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
 # Standard training step (lib/core/function.py:30-95)
 # ---------------------------------------------------------------------------
 
-def make_train_step(state, cfg, debug: bool = False):
+def make_train_step(state, cfg, debug: bool = False, group=None):
     """Returns `step(batch) -> metrics` that trains `state.model` on
     batch["image"] (B, 3, H, W) against batch["target"] and
     batch["target_weight"]. Metrics are device tensors: loss, acc,
-    acc_cnt. With `debug`, `step(batch) -> (metrics, debug_outputs)`."""
+    acc_cnt. With `debug`, `step(batch) -> (metrics, debug_outputs)` (this
+    rank's rows). `group`: the ranks to reduce over (None: one rank)."""
     loss_of = _loss_fn_for(cfg)
     model, opt = state.model, state.optimizer
 
@@ -109,15 +152,20 @@ def make_train_step(state, cfg, debug: bool = False):
         out = model(batch["image"])
         loss = loss_of(out, batch["target"], batch["target_weight"])
         loss.backward()
+        if group is not None:
+            all_reduce_mean_(grads_of(model), group)
         opt.step()
+        if group is not None:
+            average_buffers_(model, group)
         state.step += 1
-        acc, cnt = _pck(out, batch["target"])
-        metrics = {"loss": loss.detach(), "acc": acc, "acc_cnt": cnt}
+        acc, cnt = _pck(out, batch["target"], group)
+        metrics = _mean_metrics({"loss": loss.detach(), "acc": acc,
+                                 "acc_cnt": cnt}, ("loss",), group)
         if debug:
             return metrics, debug_outputs(out)
         return metrics
 
-    return step
+    return _with_bn_group(step, cfg, group)
 
 
 # ---------------------------------------------------------------------------
@@ -139,14 +187,16 @@ def mix_views(logits: torch.Tensor, views: torch.Tensor,
 
 def make_advmix_step(state, cfg, alpha: float = 0.1,
                      adv_loss_weight: float = 1.0, num_views: int = 3,
-                     debug: bool = False, _mutation=None):
+                     debug: bool = False, _mutation=None, group=None):
     """Returns `step(batch) -> metrics` for one min-max iteration on
     batch["views"] (B, 3K, H, W), channel-concat of K normalized views with
     the clean one first. Metrics are device tensors: loss_d, loss_g, acc,
     acc_cnt (PCK of the G step's D output, `function.py:167-171`).
     `step.last_mix_weights` keeps the last iteration's mixing weights. With
     `debug`, `step(batch) -> (metrics, debug_outputs)` of the G step's D
-    output, with the detached mix under "mixed".
+    output, with the detached mix under "mixed". `group`: the ranks to
+    reduce over (None: one rank); D's BN statistics are averaged after the
+    D step and again after the G step, in the JAX step's order.
 
     `_mutation` is fault injection for the tests only: it plants the two
     faults of sequencing that this formulation could hide, so that the
@@ -187,7 +237,11 @@ def make_advmix_step(state, cfg, alpha: float = 0.1,
         loss_d = (loss_of(out, target, tw) * (1.0 - alpha)
                   + loss_of(out, teacher_out, tw) * alpha)
         loss_d.backward()
+        if group is not None:
+            all_reduce_mean_(grads_of(d), group)
         opt_d.step()
+        if group is not None:
+            average_buffers_(d, group)  # stats_after_d
         del out  # D's first graph is freed before the second is built
 
         # ---- G update (function.py:158-164) ----
@@ -206,6 +260,8 @@ def make_advmix_step(state, cfg, alpha: float = 0.1,
         (dmixed,) = torch.autograd.grad(loss_g, mixed_in)
         opt_g.zero_grad(set_to_none=True)
         mixed.backward(dmixed)
+        if group is not None:
+            all_reduce_mean_(grads_of(g), group)
         opt_g.step()
         with torch.no_grad():
             if _mutation == "single_bn_update":
@@ -214,11 +270,14 @@ def make_advmix_step(state, cfg, alpha: float = 0.1,
             elif stale is not None:
                 for k, v in d.named_buffers():
                     v.copy_(stale[k])
+        if group is not None:
+            average_buffers_(d, group)  # stats_after_g
 
         state.step += 1
-        acc, cnt = _pck(out_g, target)
-        metrics = {"loss_d": loss_d.detach(), "loss_g": loss_g.detach(),
-                   "acc": acc, "acc_cnt": cnt}
+        acc, cnt = _pck(out_g, target, group)
+        metrics = _mean_metrics(
+            {"loss_d": loss_d.detach(), "loss_g": loss_g.detach(),
+             "acc": acc, "acc_cnt": cnt}, ("loss_d", "loss_g"), group)
         if debug:
             dbg = debug_outputs(out_g)
             dbg["mixed"] = mixed.detach()  # the adversarial mix, for dumps
@@ -226,20 +285,23 @@ def make_advmix_step(state, cfg, alpha: float = 0.1,
         return metrics
 
     step.last_mix_weights = None
-    return step
+    return _with_bn_group(step, cfg, group)
 
 
 # ---------------------------------------------------------------------------
 # Eval step (lib/core/function.py:200-318)
 # ---------------------------------------------------------------------------
 
-def make_eval_step(model, cfg, flip_pairs: Sequence, debug: bool = False):
+def make_eval_step(model, cfg, flip_pairs: Sequence, debug: bool = False,
+                   group=None):
     """Returns `step(batch) -> (preds, maxvals, metrics)` for an eval-mode
     model. `batch` holds device tensors: image (B, H, W, 3), target
     (B, J, Hh, Hw), target_weight (B, J), center (B, 2), scale (B, 2) and
     optionally valid (B,). `step.forward(image)` gives the flip-averaged
     f32 NCHW heatmaps that `step` decodes. With `debug` the step returns
-    `debug_outputs` of those heatmaps as a fourth item."""
+    `debug_outputs` of those heatmaps as a fourth item. Over the ranks of
+    `group` the loss and PCK are those of the global batch; the
+    predictions stay each rank's own rows."""
     loss_per_sample = _per_sample_loss_fn_for(cfg)
     flip_test = cfg.TEST.FLIP_TEST
     shift = cfg.TEST.SHIFT_HEATMAP
@@ -268,8 +330,13 @@ def make_eval_step(model, cfg, flip_pairs: Sequence, debug: bool = False):
         # padded tail rows (the Loader repeats the last sample) are masked
         # out of the logged loss and PCK
         ps = loss_per_sample(out, batch["target"], batch["target_weight"])
-        loss = (ps * v).sum() / v.sum().clamp(min=1.0)
         hit_j, val_j = pck_sums(out, batch["target"], sample_mask=v)
+        if group is None:
+            loss = (ps * v).sum() / v.sum().clamp(min=1.0)
+        else:
+            sums = torch.stack([(ps * v).sum(), v.sum()])
+            all_reduce_sum_([sums, hit_j, val_j], group)
+            loss = sums[0] / sums[1].clamp(min=1.0)
         _, acc, cnt = pck_from_sums(hit_j, val_j)
         if soft:
             preds, maxvals = get_final_preds_softargmax(
@@ -352,12 +419,12 @@ def _no_pck(device) -> dict:
 
 
 def make_bottomup_step(state, cfg, pull_factor: float = 0.001,
-                       push_factor: float = 0.001):
+                       push_factor: float = 0.001, group=None):
     """Returns `step(batch) -> metrics` that trains `state.model` on
     batch["image"] (B, 3, S, S) against batch["joints"] (B, M, J, 2) in
     input coordinates, batch["joints_vis"] (B, M, J) and the optional
     batch["mask"] (B, S, S). Metrics are device tensors: loss, pull, push,
-    acc, acc_cnt."""
+    acc, acc_cnt. `group`: the ranks to reduce over (None: one rank)."""
     pose_loss, _ = _bottomup_losses(cfg, pull_factor, push_factor)
     model, opt = state.model, state.optimizer
 
@@ -369,18 +436,24 @@ def make_bottomup_step(state, cfg, pull_factor: float = 0.001,
                                      batch["joints_vis"],
                                      _masks_for(batch.get("mask"), outs))
         loss.backward()
+        if group is not None:
+            all_reduce_mean_(grads_of(model), group)
         opt.step()
+        if group is not None:
+            average_buffers_(model, group)
         state.step += 1
-        return {"loss": loss.detach(), "pull": pull.detach(),
-                "push": push.detach(), **_no_pck(loss.device)}
+        return _mean_metrics(
+            {"loss": loss.detach(), "pull": pull.detach(),
+             "push": push.detach(), **_no_pck(loss.device)},
+            ("loss", "pull", "push"), group)
 
-    return step
+    return _with_bn_group(step, cfg, group)
 
 
 def make_bottomup_advmix_step(state, cfg, alpha: float = 0.1,
                               adv_loss_weight: float = 1.0,
                               num_views: int = 3, pull_factor: float = 0.001,
-                              push_factor: float = 0.001):
+                              push_factor: float = 0.001, group=None):
     """AdvMix min-max for the bottom-up family (HigherHRNet-W32 512x512
     AdvMix), sequenced as `make_advmix_step`: G mixes the K views, D
     updates on the detached mix against the bottom-up loss and the masked
@@ -388,7 +461,7 @@ def make_bottomup_advmix_step(state, cfg, alpha: float = 0.1,
     through the saved mix with the updated D in train mode (D's BN
     statistics update twice). batch: views (B, 3K, S, S), joints, joints_vis
     and the optional mask as for `make_bottomup_step`. Metrics: loss_d,
-    loss_g, acc, acc_cnt."""
+    loss_g, acc, acc_cnt. `group` as for `make_advmix_step`."""
     pose_loss, kd_loss = _bottomup_losses(cfg, pull_factor, push_factor)
     d, g, teacher = state.model_d, state.model_g, state.teacher
     opt_d, opt_g = state.optimizer_d, state.optimizer_g
@@ -410,7 +483,11 @@ def make_bottomup_advmix_step(state, cfg, alpha: float = 0.1,
         loss_d = (pose_loss(outs, joints, vis, masks)[0] * (1.0 - alpha)
                   + kd_loss(outs, teacher_outs, masks) * alpha)
         loss_d.backward()
+        if group is not None:
+            all_reduce_mean_(grads_of(d), group)
         opt_d.step()
+        if group is not None:
+            average_buffers_(d, group)  # stats_after_d
         del outs, teacher_outs
 
         # ---- G update through the saved mix ----
@@ -420,14 +497,18 @@ def make_bottomup_advmix_step(state, cfg, alpha: float = 0.1,
         (dmixed,) = torch.autograd.grad(loss_g, mixed_in)
         opt_g.zero_grad(set_to_none=True)
         mixed.backward(dmixed)
+        if group is not None:
+            all_reduce_mean_(grads_of(g), group)
+            average_buffers_(d, group)  # stats_after_g
         opt_g.step()
 
         state.step += 1
-        return {"loss_d": loss_d.detach(), "loss_g": loss_g.detach(),
-                **_no_pck(loss_d.device)}
+        return _mean_metrics(
+            {"loss_d": loss_d.detach(), "loss_g": loss_g.detach(),
+             **_no_pck(loss_d.device)}, ("loss_d", "loss_g"), group)
 
     step.last_mix_weights = None
-    return step
+    return _with_bn_group(step, cfg, group)
 
 
 def bottomup_infer_fn(model, cfg, flip_pairs, max_peaks: int = 30,

@@ -1,7 +1,7 @@
 """Host-side training and validation loops.
 
 Port of `advmix_tpu/engine/trainer.py` (reference `tools/train.py:283-328`
-and `lib/core/function.py`), single process. Training: the threaded Loader
+and `lib/core/function.py`). Training: the threaded Loader
 feeds uint8 crops (or, with DATASET.DEVICE_WARP, padded source images and
 crop matrices), the device warps, normalizes, synthesizes the three AdvMix
 views and builds the Gaussian targets, and each iteration is one call of a
@@ -20,6 +20,13 @@ eval step (peaks on the device), groups on the host
 (`evaluation/grouping.py`), projects the people back through the inverse
 affine and scores them with the COCO keypoint AP
 (`advmix_tpu/engine/trainer.py:445-650`).
+
+Over several ranks (`parallel/dist.py`) each rank loads its shard of every
+batch; `validate` and `validate_bottomup`, given the data `group`, gather
+the ranks' rows to rank 0 by dataset index (`merge_prediction_shards`),
+score them there, and broadcast the score, as the JAX `validate` gathers
+its processes' shards (`trainer.py:256-268, 381-413`). Only rank 0 logs
+and dumps.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from ..ops.corruptions import BENCHMARK_CORRUPTIONS, corrupt, \
     device_generator
 from ..ops.heatmap import generate_target
 from ..ops.transforms import warp_affine
+from ..parallel import dist as pdist
 from ..utils.logging import LOGGER_NAME, AverageMeter, print_name_value
 
 logger = logging.getLogger(LOGGER_NAME)
@@ -47,6 +55,14 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def rank_generator(seed: int) -> torch.Generator:
+    """The host generator of a training run's random draws (the AdvMix
+    views, `--random_corruption`'s branches): seeded with `seed` on one
+    rank, with the rank folded in on several (`parallel.dist.fold_rank`),
+    so that the ranks draw differently."""
+    return torch.Generator().manual_seed(pdist.fold_rank(seed))
 
 
 def make_random_corruption_fn():
@@ -61,7 +77,10 @@ def make_random_corruption_fn():
     generator on the batch's device. `branches` injects the per-image
     branch indices. The 4 holdout types are never drawn, as the
     reference's baseline hardcodes the 15 (`JointsDataset.py:259-264`), so
-    the held-out mPC protocol stays uncontaminated."""
+    the held-out mPC protocol stays uncontaminated. Over several ranks
+    `generator` is the rank's own (`rank_generator`, as the JAX function
+    folds the replica index into its key), so the ranks draw different
+    branches."""
     n_branches = len(BENCHMARK_CORRUPTIONS) * 5
 
     def fn(img: torch.Tensor, generator: torch.Generator, branches=None):
@@ -256,7 +275,7 @@ def train_epoch(cfg, step_fn, prep_fn, loader, device: torch.device,
         batch_time.update(time.time() - end)
         end = time.time()
         if i % cfg.PRINT_FREQ == 0:
-            if debug_out is not None and cfg.DEBUG.DEBUG:
+            if debug_out is not None and cfg.DEBUG.DEBUG and pdist.is_main():
                 _dump_debug_images(cfg, host_batch, batch, debug_out,
                                    output_dir_of(cfg), epoch, i, advmix)
             logger.info(
@@ -276,12 +295,30 @@ def output_dir_of(cfg) -> str:
                         cfg.MODEL.NAME, "debug")
 
 
+def merge_prediction_shards(parts):
+    """Merge per-rank eval outputs into one prediction set
+    (`advmix_tpu/engine/trainer.py:256-268`).
+
+    parts: list over ranks of (indices (n_p,), preds (n_p, J, 3),
+    boxes (n_p, 6)). Returns (indices, preds, boxes) concatenated and
+    stably ordered by global dataset index: the set an unsharded pass
+    produces (the shards are disjoint by construction)."""
+    idx = np.concatenate([np.asarray(p[0], np.int64) for p in parts])
+    preds = np.concatenate([np.asarray(p[1]) for p in parts])
+    boxes = np.concatenate([np.asarray(p[2]) for p in parts])
+    order = np.argsort(idx, kind="stable")
+    return idx[order], preds[order], boxes[order]
+
+
 def validate(cfg, eval_step, prep_fn, dataset, loader, output_dir: str,
-             device: torch.device, debug_out_dir: str | None = None):
+             device: torch.device, debug_out_dir: str | None = None,
+             group=None):
     """One validation pass + `dataset.evaluate`. Returns
     (name_values, perf). With `debug_out_dir` and an eval step built with
     `debug=True`, the DEBUG.* dumps of every PRINT_FREQ-th batch go
-    there."""
+    there. With the data `group` of several ranks (each `loader` a shard),
+    the ranks' rows are gathered to rank 0, evaluated there, and the
+    result is broadcast."""
     losses = AverageMeter()
     accs = AverageMeter()
     num_samples = len(dataset)
@@ -313,7 +350,7 @@ def validate(cfg, eval_step, prep_fn, dataset, loader, output_dir: str,
         step_out = eval_step(batch)
         preds, maxvals, metrics = step_out[:3]
         if debug_out_dir is not None and len(step_out) == 4 \
-                and bi % cfg.PRINT_FREQ == 0:
+                and bi % cfg.PRINT_FREQ == 0 and pdist.is_main():
             _dump_val_debug_images(cfg, host_batch, batch, step_out[3],
                                    debug_out_dir, bi)
         preds = preds.cpu().numpy()
@@ -337,12 +374,25 @@ def validate(cfg, eval_step, prep_fn, dataset, loader, output_dir: str,
     logger.info("=> The average device time per batch: %.4fs",
                 t_device / max(len(loader), 1))
     logger.info("=> loss %.6f  acc %.4f", losses.avg, accs.avg)
-    name_values, perf = dataset.evaluate(
-        cfg, all_preds[:idx], output_dir, all_boxes[:idx], image_paths,
-        indices=all_indices[:idx], device=device,
-    )
-    print_name_value(logger, name_values, cfg.MODEL.NAME)
-    return name_values, perf
+    if group is None:
+        name_values, perf = dataset.evaluate(
+            cfg, all_preds[:idx], output_dir, all_boxes[:idx], image_paths,
+            indices=all_indices[:idx], device=device,
+        )
+        print_name_value(logger, name_values, cfg.MODEL.NAME)
+        return name_values, perf
+    parts = pdist.gather_to_main((all_indices[:idx], all_preds[:idx],
+                                  all_boxes[:idx], image_paths))
+    result = None
+    if pdist.is_main():
+        indices, preds, boxes = merge_prediction_shards(parts)
+        path_of = {int(i): p for part in parts
+                   for i, p in zip(part[0], part[3])}
+        result = dataset.evaluate(
+            cfg, preds, output_dir, boxes, [path_of[int(i)] for i in indices],
+            indices=indices, device=device)
+        print_name_value(logger, result[0], cfg.MODEL.NAME)
+    return pdist.broadcast_from_main(result)
 
 
 # ---------------------------------------------------------------------------
@@ -409,14 +459,18 @@ def train_epoch_bottomup(cfg, step_fn, prep_fn, loader, device: torch.device,
 def validate_bottomup(cfg, eval_step, dataset, loader, output_dir: str,
                       device: torch.device, detection_thresh: float = 0.1,
                       tag_thresh: float = 1.0, corruption: str = "",
-                      severity: int = 0, stats: dict | None = None):
+                      severity: int = 0, stats: dict | None = None,
+                      group=None):
     """Bottom-up validation: the eval step's forward and peaks on the
     device (after an on-the-fly `corruption` at `severity` 1..5, seeded 1
     every batch as the top-down sweep's), AE grouping on the host, the
     inverse affine back to image coordinates, a COCO results json and the
     OKS AP. Returns (name_values, AP). `stats`, if given, receives the
     pass's host-clock seconds: `device_s` (step to read-back), `group_s`,
-    `eval_s`, and the counts `images` and `groups`."""
+    `eval_s`, and the counts `images` and `groups` (over all ranks; the
+    seconds are rank 0's). With the data `group` of several ranks (each
+    `loader` a shard), the people found are gathered to rank 0 in dataset
+    order, scored there, and the result is broadcast."""
     import json
 
     from ..evaluation.cocoeval_np import STATS_NAMES, COCOKeypointEval
@@ -431,7 +485,7 @@ def validate_bottomup(cfg, eval_step, dataset, loader, output_dir: str,
     inv_std = 1.0 / (torch.tensor(IMAGENET_STD, dtype=torch.float32,
                                   device=device) * 255.0)
     corrupted = corruption not in (None, "", "clean")
-    results = []
+    results, owners = [], []  # the people found, their image's index
     t = dict(device_s=0.0, group_s=0.0, eval_s=0.0, images=0, groups=0)
     for host_batch in loader:
         t0 = time.perf_counter()
@@ -471,7 +525,20 @@ def validate_bottomup(cfg, eval_step, dataset, loader, output_dir: str,
                 results.append(dict(image_id=image_id, category_id=1,
                                     keypoints=[float(v) for v in kps],
                                     score=float(sc)))
+                owners.append(int(host_batch["_indices"][i]))
         t["group_s"] += time.perf_counter() - t1
+
+    if group is not None:
+        parts = pdist.gather_to_main((owners, results, t["images"],
+                                      t["groups"]))
+        if not pdist.is_main():
+            return pdist.broadcast_from_main(None)
+        order = np.argsort(np.concatenate(
+            [np.asarray(p[0], np.int64) for p in parts]), kind="stable")
+        merged = [r for p in parts for r in p[1]]
+        results = [merged[int(k)] for k in order]
+        t["images"] = sum(p[2] for p in parts)
+        t["groups"] = sum(p[3] for p in parts)
 
     res_folder = os.path.join(output_dir, "results")
     os.makedirs(res_folder, exist_ok=True)
@@ -495,4 +562,6 @@ def validate_bottomup(cfg, eval_step, dataset, loader, output_dir: str,
                 t["groups"], t["device_s"], t["group_s"], t["eval_s"])
     if stats is not None:
         stats.update(t)
+    if group is not None:
+        return pdist.broadcast_from_main((name_value, perf))
     return name_value, perf

@@ -13,15 +13,40 @@ updates, and only records the dtype (flax `dtype` without `param_dtype`,
 `layers.py:125-134`). BatchNorm and InstanceNorm keep their statistics and
 arithmetic in at least f32 and hand the input's dtype on, as the JAX
 `TorchBatchNorm` does (`layers.py:57-83`).
+
+Cross-replica BatchNorm (TRAIN.CROSS_REPLICA_BN over several ranks): inside
+`cross_replica_bn(group)` every train-mode `BatchNorm2d` averages its E[x]
+and E[x^2] over the group and takes var = max(E[x^2] - E[x]^2, 0), the
+JAX `TorchBatchNorm` with an `axis_name` (`layers.py:60-80, 90-115`).
+Outside it, and in eval mode, the statistics are the rank's own.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 BN_MOMENTUM = 0.1  # reference BN_MOMENTUM (lib/models/pose_resnet.py:18)
+
+
+# the group of `cross_replica_bn`'s scope (None: per-replica statistics)
+_BN_GROUP = {"group": None}
+
+
+@contextlib.contextmanager
+def cross_replica_bn(group):
+    """Scope in which train-mode `BatchNorm2d` layers compute their batch
+    statistics over the ranks of `group` (None: per-replica), as the JAX
+    steps wrap their bodies in `cross_replica_bn(axis_name)`."""
+    old = _BN_GROUP["group"]
+    _BN_GROUP["group"] = group
+    try:
+        yield
+    finally:
+        _BN_GROUP["group"] = old
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -33,7 +58,30 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(torch.float32, x.dtype)
+        group = _BN_GROUP["group"]
+        if group is not None and self.training:
+            return self._cross_replica(x.to(dt), group).to(x.dtype)
         return super().forward(x.to(dt)).to(x.dtype)
+
+    def _cross_replica(self, x: torch.Tensor, group) -> torch.Tensor:
+        from ..parallel.dist import AllReduceMean
+
+        n = x.numel() // x.shape[1]
+        stats = AllReduceMean.apply(
+            torch.stack([x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))]),
+            group)
+        mean, mean2 = stats[0], stats[1]
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            n_all = float(n * torch.distributed.get_world_size(group))
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var
+                                   + m * var * (n_all / max(n_all - 1.0, 1.0)))
+            self.num_batches_tracked.add_(1)
+        y = (x - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None,
+                                                                     None]
+        return y * self.weight[:, None, None] + self.bias[:, None, None]
 
 
 class InstanceNorm2d(nn.InstanceNorm2d):

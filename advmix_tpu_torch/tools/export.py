@@ -50,7 +50,7 @@ from ..ops import quant
 from ..ops.cuda.decode_kernel import decode_heatmaps
 from ..utils.device import resolve_device
 from ..utils.logging import create_logger
-from ._parse import parse_args
+from ._parse import one_device_only, parse_args
 from .validate import load_test_model_file
 
 PROGRAM = "pose_infer.pt2"
@@ -149,6 +149,7 @@ def main(argv=None):
                             "standard-normal images")
     extra_args, rest = extra.parse_known_args(argv)
     args = parse_args(rest)
+    one_device_only(args, "export")
     device = resolve_device(args.device)
     cfg = get_default_config()
     update_config(cfg, args)

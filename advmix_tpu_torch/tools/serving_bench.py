@@ -32,7 +32,7 @@ from ..models.layers import set_compute_dtype
 from ..ops import quant
 from ..ops.heatmap import generate_target
 from ..utils.device import resolve_device
-from ._parse import parse_args
+from ._parse import one_device_only, parse_args
 from .bench import card_line
 
 ARMS = ("bf16", "int8", "int8pre")
@@ -117,6 +117,7 @@ def main(argv=None):
     extra.add_argument("--steps", type=int, default=20)
     extra_args, rest = extra.parse_known_args(argv)
     args = parse_args(rest)
+    one_device_only(args, "serving_bench")
     device = resolve_device(args.device)
     cfg = get_default_config()
     update_config(cfg, args)

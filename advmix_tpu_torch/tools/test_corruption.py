@@ -33,6 +33,12 @@ tool): the activation scales are calibrated on the first
 TEST.INT8_CALIB_BATCHES clean val batches, times TEST.INT8_CALIB_MARGIN,
 and the eval model is swapped for its quantized copy, top-down and
 bottom-up alike.
+
+`--num_devices N` sweeps on N ranks (`tools/_parse.py`; JAX
+`tools/test_corruption.py:205-250`): each evaluates its shard of every
+pass, rank 0 scores the gathered predictions and writes `robust_C.val` and
+the CSV. Under TEST.INT8 rank 0 calibrates on its shard and every rank
+quantizes with its scales.
 """
 
 from __future__ import annotations
@@ -54,9 +60,9 @@ from ..models import get_pose_net
 from ..models.layers import set_compute_dtype
 from ..ops import quant
 from ..ops.corruptions import BENCHMARK_CORRUPTIONS, HOLDOUT_CORRUPTIONS
-from ..utils.device import resolve_device
+from ..parallel import dist as pdist
 from ..utils.logging import create_logger
-from ._parse import parse_args
+from ._parse import parse_args, ranks
 from .validate import load_test_model_file
 
 BENCHMARK_15 = list(BENCHMARK_CORRUPTIONS)
@@ -78,12 +84,17 @@ def main(argv=None, build_dataset=default_build_dataset):
                             "15 benchmark corruptions)")
     extra_args, rest = extra.parse_known_args(argv)
     args = parse_args(rest)
-    device = resolve_device(args.device)
+    device, launched = ranks(main, args, argv, build_dataset)
+    if device is None:
+        return launched
+    group, main_rank = pdist.data_group(), pdist.is_main()
+    shards = dict(num_shards=pdist.world(), shard_index=pdist.rank())
     args.test_robust = True
     cfg = get_default_config()
     update_config(cfg, args)
 
-    logger, output_dir, _ = create_logger(cfg, args.cfg, "valid")
+    logger, output_dir, _ = create_logger(cfg, args.cfg, "valid",
+                                          main=main_rank)
     logger.info(pprint.pformat(vars(args)) + "\n"
                 + pprint.pformat(vars(extra_args)))
     logger.info("=> device %s", device)
@@ -96,6 +107,7 @@ def main(argv=None, build_dataset=default_build_dataset):
     model = get_pose_net(cfg)
     load_test_model_file(model, cfg, output_dir, logger)
     model = model.to(device).eval()
+    pdist.broadcast_module_(model)
 
     def dataset_for(corruption: str, severity0: int, robust: bool):
         cfg.defrost()
@@ -113,9 +125,14 @@ def main(argv=None, build_dataset=default_build_dataset):
         # calibrate the f32 weights computing in `dtype`, then quantize
         # them: the copy computes in `dtype` too
         set_compute_dtype(model, dtype, trainable=True)
-        act_scales = quant.calibrate_from_loader(
-            model, Loader(first, batch), cfg.TEST.INT8_CALIB_BATCHES, device,
-            margin=float(cfg.TEST.INT8_CALIB_MARGIN))
+        act_scales = None
+        if main_rank:  # on rank 0's shard; the others take its scales
+            act_scales = quant.calibrate_from_loader(
+                model, Loader(first, batch, num_shards=pdist.world()),
+                cfg.TEST.INT8_CALIB_BATCHES, device,
+                margin=float(cfg.TEST.INT8_CALIB_MARGIN))
+        if group is not None:
+            act_scales = pdist.broadcast_from_main(act_scales)
         model = quant.quantize_model(model, act_scales)
         logger.info(f"=> int8 eval: {len(act_scales)} convs calibrated on "
                     f"{int(cfg.TEST.INT8_CALIB_BATCHES)} batch(es)")
@@ -126,10 +143,10 @@ def main(argv=None, build_dataset=default_build_dataset):
             model, cfg, first.flip_pairs,
             scales=tuple(cfg.TEST.SCALE_FACTOR))
     else:
-        eval_step = make_eval_step(model, cfg, first.flip_pairs)
+        eval_step = make_eval_step(model, cfg, first.flip_pairs, group=group)
     # on the fly, every pass reads the same clean crops and the device
     # corrupts them: the host's work is the same on every pass
-    cached = (first, CachedLoader(Loader(first, batch))) \
+    cached = (first, CachedLoader(Loader(first, batch, **shards))) \
         if extra_args.on_the_fly else None
 
     def run_one(corruption: str, severity0: int):
@@ -139,7 +156,7 @@ def main(argv=None, build_dataset=default_build_dataset):
             dataset, loader = cached
         else:
             dataset = dataset_for(corruption, severity0, True)
-            loader = Loader(dataset, batch)
+            loader = Loader(dataset, batch, **shards)
         cfg.defrost()
         cfg.TEST.CORRUPTION_TYPE = corruption
         cfg.TEST.SEVERITY = severity0
@@ -149,17 +166,19 @@ def main(argv=None, build_dataset=default_build_dataset):
         if bottomup:
             name_values, perf = trainer_lib.validate_bottomup(
                 cfg, eval_step, dataset, loader, output_dir, device,
-                corruption=on_device, severity=severity0 + 1)
+                corruption=on_device, severity=severity0 + 1, group=group)
         else:
             prep = make_eval_preprocessor(cfg, device, corruption=on_device,
                                           severity=severity0 + 1)
             name_values, perf = validate(cfg, eval_step, prep, dataset,
-                                         loader, output_dir, device)
-        with open(os.path.join(output_dir, "robust_C.val"), "a") as rec:
-            rec.write(f"{corruption}_{severity0}:\t")
-            for k, v in name_values.items():
-                rec.write(f"{k} = {v}\t")
-            rec.write("\n")
+                                         loader, output_dir, device,
+                                         group=group)
+        if main_rank:
+            with open(os.path.join(output_dir, "robust_C.val"), "a") as rec:
+                rec.write(f"{corruption}_{severity0}:\t")
+                for k, v in name_values.items():
+                    rec.write(f"{k} = {v}\t")
+                rec.write("\n")
         return name_values, perf
 
     if extra_args.distortions:
@@ -173,8 +192,10 @@ def main(argv=None, build_dataset=default_build_dataset):
     for corruption, severity0 in passes:
         name_values, perf = run_one(corruption, severity0)
         runs.append((corruption, severity0, name_values, perf))
-    path = write_final_csv([r[3] for r in runs], distortions, output_dir,
-                           args.exp_id or "robust", cfg.DATASET.DATASET)
+    path = None
+    if main_rank:
+        path = write_final_csv([r[3] for r in runs], distortions, output_dir,
+                               args.exp_id or "robust", cfg.DATASET.DATASET)
     return dict(runs=runs, csv=path, output_dir=output_dir)
 
 

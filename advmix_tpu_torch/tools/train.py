@@ -24,7 +24,12 @@ MODEL.NAME pose_higher_hrnet trains bottom-up (:74,150-160,207-208,245,
 samples warped on the host (DATASET.DEVICE_WARP does not apply), and the
 bottom-up validation after every epoch.
 It runs on the CUDA device, and raises without one unless `--device cpu`
-is given.
+is given. `--num_devices N` trains data-parallel on N ranks, one per card
+(`tools/_parse.py`; JAX `tools/train.py:240-259`): each loads its shard of
+every global batch of N * TRAIN.BATCH_SIZE_PER_GPU, the steps average
+gradients and BN statistics over the ranks, validation gathers to rank 0,
+and rank 0 writes the logs and checkpoints; `main` returns rank 0's
+result, its tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -45,10 +50,10 @@ from ..engine.checkpoint import CheckpointManager, export_final_state
 from ..engine.optim import epoch_lr_update
 from ..models import get_generator, get_pose_net, he_reinit_convs, \
     load_generator_file, load_model_file, load_pretrained
-from ..utils.device import resolve_device
 from ..utils.logging import create_logger
 from ..ops import quant
-from ._parse import parse_args
+from ..parallel import dist as pdist
+from ._parse import parse_args, ranks
 
 
 def main(argv=None, build_dataset=default_build_dataset):
@@ -57,7 +62,10 @@ def main(argv=None, build_dataset=default_build_dataset):
     the config, the state, the per-iteration metrics of the epochs that ran, the last
     validation's score, the output directory and the final state's path."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device, launched = ranks(main, args, argv, build_dataset)
+    if device is None:
+        return launched
+    group, world, rank = pdist.data_group(), pdist.world(), pdist.rank()
     cfg = get_default_config()
     update_config(cfg, args)
     if args.sp_style and not args.stylize_image:
@@ -74,11 +82,13 @@ def main(argv=None, build_dataset=default_build_dataset):
             raise SystemExit(f"{', '.join(top_down_only)}: top-down only; "
                              "the bottom-up path has no such option")
 
-    logger, output_dir, _ = create_logger(cfg, args.cfg, "train")
+    logger, output_dir, _ = create_logger(cfg, args.cfg, "train",
+                                          main=pdist.is_main())
     logger.info(pprint.pformat(vars(args)))
     dtype_name = args.dtype or cfg.TRAIN.DTYPE
     dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
-    logger.info(f"=> device {device}, compute dtype {dtype_name}")
+    logger.info(f"=> device {device}, {world} rank(s), compute dtype "
+                f"{dtype_name}")
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = bool(cfg.CUDNN.BENCHMARK)
     if dtype_name != cfg.TRAIN.DTYPE:
@@ -109,6 +119,8 @@ def main(argv=None, build_dataset=default_build_dataset):
         # the teacher is a copy of D as loaded above
         state = state_lib.create_advmix_state(cfg, model, model_g, device,
                                               dtype)
+        for m in (state.model_d, state.model_g, state.teacher):
+            pdist.broadcast_module_(m)
         if bottomup:
             if cfg.TRAIN.INT8_TEACHER:
                 logger.warning("=> TRAIN.INT8_TEACHER ignored for bottom-up "
@@ -116,15 +128,17 @@ def main(argv=None, build_dataset=default_build_dataset):
             step_fn = steps.make_bottomup_advmix_step(
                 state, cfg, alpha=args.alpha,
                 adv_loss_weight=args.adv_loss_weight,
-                num_views=args.sample_times)
+                num_views=args.sample_times, group=group)
         else:
             # built once the train dataset exists: TRAIN.INT8_TEACHER
             # calibrates on its first batches
             step_fn = None
     else:
         state = state_lib.create_pose_state(cfg, model, device, dtype)
-        step_fn = (steps.make_bottomup_step(state, cfg) if bottomup
-                   else steps.make_train_step(state, cfg, debug=debug))
+        pdist.broadcast_module_(state.model)
+        step_fn = (steps.make_bottomup_step(state, cfg, group=group)
+                   if bottomup else
+                   steps.make_train_step(state, cfg, debug=debug, group=group))
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"=> {cfg.MODEL.NAME}: {n_params} parameters")
 
@@ -140,14 +154,15 @@ def main(argv=None, build_dataset=default_build_dataset):
         cfg, False, cfg.DATASET.TRAIN_SET if cfg.DATASET.MINI_COCO else None)
     # a bottom-up sample is the whole image, warped on the host
     device_warp = bool(cfg.DATASET.DEVICE_WARP) and not bottomup
+    shards = dict(num_shards=world, shard_index=rank)
     train_loader = Loader(train_dataset, cfg.TRAIN.BATCH_SIZE_PER_GPU,
                           shuffle=cfg.TRAIN.SHUFFLE, drop_last=True,
                           raw_mode=device_warp,
-                          bucket_hw=tuple(cfg.DATASET.WARP_BUCKET))
+                          bucket_hw=tuple(cfg.DATASET.WARP_BUCKET), **shards)
     # every epoch's validation prepares the same batches: replay them from
     # host memory after the first epoch
     valid_loader = CachedLoader(Loader(valid_dataset,
-                                       cfg.TEST.BATCH_SIZE_PER_GPU))
+                                       cfg.TEST.BATCH_SIZE_PER_GPU, **shards))
     if device_warp:
         logger.info("=> device-warp input pipeline (the host decodes only; "
                     f"bucket {tuple(cfg.DATASET.WARP_BUCKET)})")
@@ -157,18 +172,28 @@ def main(argv=None, build_dataset=default_build_dataset):
     if advmix and step_fn is None:
         if cfg.TRAIN.INT8_TEACHER:
             # the teacher is a copy of D as loaded: quantize D's f32 master
-            # weights, calibrated on the first clean train crops
-            state.teacher, act_scales = quant.int8_teacher_from_config(
-                dtype, state.model_d, device=device,
-                loader=Loader(train_dataset, cfg.TRAIN.BATCH_SIZE_PER_GPU),
-                n_batches=cfg.TEST.INT8_CALIB_BATCHES,
-                margin=float(cfg.TEST.INT8_CALIB_MARGIN))
+            # weights, calibrated on the first clean train crops (of rank
+            # 0's shard; every rank quantizes with rank 0's scales)
+            act_scales = None
+            if pdist.is_main():
+                state.teacher, act_scales = quant.int8_teacher_from_config(
+                    dtype, state.model_d, device=device,
+                    loader=Loader(train_dataset,
+                                  cfg.TRAIN.BATCH_SIZE_PER_GPU,
+                                  num_shards=world),
+                    n_batches=cfg.TEST.INT8_CALIB_BATCHES,
+                    margin=float(cfg.TEST.INT8_CALIB_MARGIN))
+            if world > 1:
+                act_scales = pdist.broadcast_from_main(act_scales)
+                if not pdist.is_main():
+                    state.teacher = quant.make_int8_teacher(state.model_d,
+                                                            act_scales)
             logger.info(f"=> int8 teacher: {len(act_scales)} convs "
                         "calibrated")
         step_fn = steps.make_advmix_step(
             state, cfg, alpha=args.alpha,
             adv_loss_weight=args.adv_loss_weight,
-            num_views=args.sample_times, debug=debug)
+            num_views=args.sample_times, debug=debug, group=group)
 
     if bottomup:
         prep_train = trainer_lib.make_bottomup_preprocessor(cfg, advmix,
@@ -183,7 +208,7 @@ def main(argv=None, build_dataset=default_build_dataset):
             sp_style=bool(args.sp_style and args.stylize_image))
         prep_eval = trainer_lib.make_eval_preprocessor(cfg, device)
         eval_step = steps.make_eval_step(model, cfg, valid_dataset.flip_pairs,
-                                         debug=debug)
+                                         debug=debug, group=group)
     if args.random_corruption:
         logger.info("=> --random_corruption: a random benchmark corruption "
                     "per training image")
@@ -199,7 +224,7 @@ def main(argv=None, build_dataset=default_build_dataset):
             best_perf = float(restored["perf"])
             logger.info(f"=> auto-resumed at epoch {begin_epoch}")
 
-    generator = torch.Generator().manual_seed(1234 + begin_epoch)
+    generator = trainer_lib.rank_generator(1234 + begin_epoch)
     optimizers = ([state.optimizer_d, state.optimizer_g] if advmix
                   else [state.optimizer])
     history, perf = [], None
@@ -217,12 +242,13 @@ def main(argv=None, build_dataset=default_build_dataset):
         if bottomup:
             _, perf = trainer_lib.validate_bottomup(
                 cfg, eval_step, valid_dataset, valid_loader, output_dir,
-                device)
+                device, group=group)
         else:
             _, perf = trainer_lib.validate(cfg, eval_step, prep_eval,
                                            valid_dataset, valid_loader,
                                            output_dir, device,
-                                           debug_out_dir=debug_dir)
+                                           debug_out_dir=debug_dir,
+                                           group=group)
         is_best = perf > best_perf
         best_perf = max(perf, best_perf)
         logger.info(f"=> saving checkpoint to {output_dir} (best: {is_best})")

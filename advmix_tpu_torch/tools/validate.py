@@ -10,7 +10,9 @@ variables, `models/convert.py`) or warn and evaluate the random init, run
 pose_higher_hrnet), and append the result to `robust_C.val`. A directory
 as the model file (a JAX orbax `final_state`) stops the run: the port
 reads orbax only through an `.npz`. It runs on the CUDA device, and raises
-without one unless `--device cpu` is given.
+without one unless `--device cpu` is given. `--num_devices N` evaluates on
+N ranks (`tools/_parse.py`), each on its shard of every batch, gathered to
+rank 0, which scores and writes `robust_C.val`.
 """
 
 from __future__ import annotations
@@ -26,9 +28,9 @@ from ..engine import trainer as trainer_lib
 from ..engine.steps import make_bottomup_eval_step, make_eval_step
 from ..models import get_pose_net, load_model_file
 from ..models.layers import set_compute_dtype
-from ..utils.device import resolve_device
+from ..parallel import dist as pdist
 from ..utils.logging import create_logger
-from ._parse import parse_args
+from ._parse import parse_args, ranks
 
 
 def load_test_model_file(model, cfg, output_dir: str, logger) -> None:
@@ -53,7 +55,10 @@ def load_test_model_file(model, cfg, output_dir: str, logger) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device, launched = ranks(main, args, argv)
+    if device is None:
+        return launched
+    group = pdist.data_group()
     # the clean pass runs with the robustness flags of the sweep
     # (test_corruption.py:58,226-233): outputs go to the robustness tree
     args.test_robust = True
@@ -64,7 +69,8 @@ def main(argv=None):
     cfg.TEST.CORRUPTION_TYPE = "clean"
     cfg.freeze()
 
-    logger, output_dir, _ = create_logger(cfg, args.cfg, "valid")
+    logger, output_dir, _ = create_logger(cfg, args.cfg, "valid",
+                                          main=pdist.is_main())
     logger.info(pprint.pformat(vars(args)))
     logger.info("=> device %s", device)
     if device.type == "cuda":
@@ -74,26 +80,32 @@ def main(argv=None):
 
     model = get_pose_net(cfg)
     load_test_model_file(model, cfg, output_dir, logger)
-    model = set_compute_dtype(model.to(device).eval(), dtype)
+    model = model.to(device).eval()
+    pdist.broadcast_module_(model)
+    model = set_compute_dtype(model, dtype)
 
     dataset = build_dataset(cfg, is_train=False)
-    loader = Loader(dataset, cfg.TEST.BATCH_SIZE_PER_GPU)
+    loader = Loader(dataset, cfg.TEST.BATCH_SIZE_PER_GPU,
+                    num_shards=pdist.world(), shard_index=pdist.rank())
     if cfg.MODEL.NAME == "pose_higher_hrnet":
         eval_step = make_bottomup_eval_step(
             model, cfg, dataset.flip_pairs,
             scales=tuple(cfg.TEST.SCALE_FACTOR))
         name_values, perf = trainer_lib.validate_bottomup(
-            cfg, eval_step, dataset, loader, output_dir, device)
+            cfg, eval_step, dataset, loader, output_dir, device, group=group)
     else:
-        eval_step = make_eval_step(model, cfg, dataset.flip_pairs)
+        eval_step = make_eval_step(model, cfg, dataset.flip_pairs,
+                                   group=group)
         prep = trainer_lib.make_eval_preprocessor(cfg, device)
         name_values, perf = trainer_lib.validate(
-            cfg, eval_step, prep, dataset, loader, output_dir, device)
-    with open(os.path.join(output_dir, "robust_C.val"), "a") as rec:
-        rec.write("clean_0:\t")
-        for k, v in name_values.items():
-            rec.write(f"{k} = {v}\t")
-        rec.write("\n")
+            cfg, eval_step, prep, dataset, loader, output_dir, device,
+            group=group)
+    if pdist.is_main():
+        with open(os.path.join(output_dir, "robust_C.val"), "a") as rec:
+            rec.write("clean_0:\t")
+            for k, v in name_values.items():
+                rec.write(f"{k} = {v}\t")
+            rec.write("\n")
     return name_values, perf
 
 

@@ -16,8 +16,11 @@ from pathlib import Path
 LOGGER_NAME = "advmix_tpu_torch"
 
 
-def create_logger(cfg, cfg_name: str, phase: str = "train"):
-    """Returns (logger, final_output_dir, tb_log_dir)."""
+def create_logger(cfg, cfg_name: str, phase: str = "train",
+                  main: bool = True):
+    """Returns (logger, final_output_dir, tb_log_dir). A rank other than
+    the main one (`main=False`) writes no log file and logs only
+    warnings."""
     root_output_dir = Path(cfg.OUTPUT_DIR or "output")
     dataset = cfg.DATASET.DATASET
     model = cfg.MODEL.NAME
@@ -34,18 +37,18 @@ def create_logger(cfg, cfg_name: str, phase: str = "train"):
     final_log_file = final_output_dir / f"{cfg_name}_{time_str}_{phase}.log"
 
     logger = logging.getLogger(LOGGER_NAME)
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if main else logging.WARNING)
     logger.propagate = False
     for h in list(logger.handlers):
         logger.removeHandler(h)
         h.close()
     fmt = logging.Formatter("%(asctime)-15s %(message)s")
-    fh = logging.FileHandler(str(final_log_file))
-    fh.setFormatter(fmt)
-    ch = logging.StreamHandler()
-    ch.setFormatter(fmt)
-    logger.addHandler(fh)
-    logger.addHandler(ch)
+    handlers = [logging.StreamHandler()]
+    if main:
+        handlers.append(logging.FileHandler(str(final_log_file)))
+    for h in handlers:
+        h.setFormatter(fmt)
+        logger.addHandler(h)
 
     tb_log_dir = (
         Path(cfg.LOG_DIR or "log") / dataset / model / f"{cfg_name}_{time_str}"

@@ -102,7 +102,25 @@ Phases, each fatal on failure:
    one decode launch per predict, and once over HTTP; the bottom-up YAML
    exported at batch 8 and served, equal to `bottomup_infer_fn`; and
    `tools/serving_bench` on its bf16, int8 and int8pre arms;
-14. print a `kernels` JSON line and, last, the device JSON line.
+14. data parallelism on two ranks (`parallel/dist.py`; NCCL on cuda:0 and
+   cuda:1 where the machine has two cards, else both ranks on cuda:0 over
+   gloo, after a one-rank NCCL group has all-reduced a buffer there): one
+   float64 AdvMix step of W32 with TRAIN.CROSS_REPLICA_BN on two ranks
+   against one rank on the whole batch (within 1e-9 of the update's range);
+   the W32 eval through validate() on phase 4's val set on two ranks,
+   gathered to rank 0, against the one-rank pass (results json equal byte
+   for byte, the same AP); the AdvMix step timed on two ranks and on one,
+   and the all-reduce of D's and G's gradients (on NCCL, one of each also
+   under torch.profiler: NCCL's kernels vs the other device work);
+   `tools/train.main --advmix --sample_times 3` on two ranks (3 iterations
+   of 2 x 32, the gathered validate(), a checkpoint): D and G bit-identical
+   on both ranks, decode launched on both, OKS on rank 0 only (each rank
+   writes its counts to a file);
+15. print a `kernels` JSON line and, last, the device JSON line.
+
+The entry-point calls of phases 5-13 pass `--num_devices 1` (the tools'
+default, 0, takes every card): on a machine of several cards they run on
+cuda:0 as on a machine of one, and only phase 14 runs several ranks.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -802,8 +820,9 @@ def train_phase(dev, tmp: str, start_path: str, dataset_cls, kernel_fns):
     write_coco(tmp, "train2017", [4] * 26, np.random.RandomState(SEED + 4))
     out_dir = os.path.join(tmp, "train_out")
     argv = ["--cfg", CFG, "--advmix", "--sample_times", "3", "--alpha",
-            str(ALPHA), "--adv_loss_weight", str(ADV_W), "--modelDir",
-            out_dir, "--logDir", os.path.join(tmp, "train_log"),
+            str(ALPHA), "--adv_loss_weight", str(ADV_W), "--num_devices",
+            "1", "--modelDir", out_dir, "--logDir",
+            os.path.join(tmp, "train_log"),
             "--load_from_D", start_path, "DATASET.ROOT", tmp,
             "TRAIN.END_EPOCH", "1", "PRINT_FREQ", "1"]
 
@@ -1187,6 +1206,7 @@ def sweep_phase(dev, tmp: str, start_path: str, dataset_cls,
     counts = write_coco(root, "val2017", [int(c) for c in np.random.RandomState(
         SEED + 20).randint(2, 9, 20)], np.random.RandomState(SEED + 21))
     argv = ["--cfg", CFG, "--on_the_fly", "--device", str(dev),
+            "--num_devices", "1",
             "--modelDir", os.path.join(tmp, "sweep_out"),
             "--logDir", os.path.join(tmp, "sweep_log"), "DATASET.ROOT", root,
             "TEST.MODEL_FILE", start_path]
@@ -1228,7 +1248,7 @@ def random_corruption_train_phase(dev, tmp: str, start_path: str,
     root = os.path.join(tmp, "sweep")  # phase 7 wrote its val set there
     write_coco(root, "train2017", [4] * 16, np.random.RandomState(SEED + 22))
     argv = ["--cfg", CFG, "--random_corruption", "--device", str(dev),
-            "--load_from_D", start_path,
+            "--num_devices", "1", "--load_from_D", start_path,
             "--modelDir", os.path.join(tmp, "rc_out"), "--logDir",
             os.path.join(tmp, "rc_log"), "DATASET.ROOT", root,
             "TRAIN.END_EPOCH", "1", "PRINT_FREQ", "1"]
@@ -1555,7 +1575,8 @@ def mpii_paths(dev, tmp: str, kernel_fns) -> dict:
     out_dir = os.path.join(tmp, "mpii_out")
     argv = ["--cfg", MPII_CFG, "--advmix", "--sample_times", "3",
             "--stylize_image", "--sp_style", "1", "--device", str(dev),
-            "--load_from_D", start, "--modelDir", out_dir,
+            "--num_devices", "1", "--load_from_D", start, "--modelDir",
+            out_dir,
             "--logDir", os.path.join(tmp, "mpii_log"), "DATASET.ROOT", root,
             "TRAIN.END_EPOCH", "1", "TEST.BATCH_SIZE_PER_GPU",
             str(EVAL_BATCH), *DEBUG_OPTS]
@@ -1640,7 +1661,8 @@ def mpii_paths(dev, tmp: str, kernel_fns) -> dict:
     torch.cuda.empty_cache()
 
     argv = ["--cfg", MPII_CFG, "--on_the_fly", "--device", str(dev),
-            "--modelDir", os.path.join(tmp, "mpii_sweep_out"), "--logDir",
+            "--num_devices", "1", "--modelDir",
+            os.path.join(tmp, "mpii_sweep_out"), "--logDir",
             os.path.join(tmp, "mpii_sweep_log"), "DATASET.ROOT", root,
             "TEST.MODEL_FILE", final_state, "TEST.BATCH_SIZE_PER_GPU",
             str(EVAL_BATCH)]
@@ -2176,7 +2198,8 @@ def bottomup_eval_paths(dev, tmp: str, root: str, starts: dict,
     for rel, scales in ((HIGHER_CFG, "[1]"), (HIGHER_CFG, "[0.5, 1, 2]"),
                         (OCHUMAN_CFG, "[1]")):
         name = os.path.basename(os.path.dirname(os.path.dirname(rel)))
-        argv = ["--cfg", rel, "--device", str(dev), "--modelDir",
+        argv = ["--cfg", rel, "--device", str(dev), "--num_devices", "1",
+                "--modelDir",
                 os.path.join(tmp, "bu_val_out"), "--logDir",
                 os.path.join(tmp, "bu_val_log"), "DATASET.ROOT", root,
                 "TEST.MODEL_FILE", starts[scales], "TEST.SCALE_FACTOR",
@@ -2281,8 +2304,9 @@ def bottomup_train_paths(dev, tmp: str, root: str, start_path: str,
                  else [])
         opts = ["DATASET.TEST_SET", "val1"] + (
             [] if mode == "advmix" else ["DATASET.TRAIN_SET", "train24"])
-        argv = ["--cfg", HIGHER_CFG, "--device", str(dev), "--load_from_D",
-                start_path, "--modelDir", os.path.join(tmp, f"bu_{mode}"),
+        argv = ["--cfg", HIGHER_CFG, "--device", str(dev), "--num_devices",
+                "1", "--load_from_D", start_path, "--modelDir",
+                os.path.join(tmp, f"bu_{mode}"),
                 "--logDir", os.path.join(tmp, f"bu_{mode}_log"), *flags,
                 "DATASET.ROOT", root, "TRAIN.END_EPOCH", "1", "PRINT_FREQ",
                 "1", *opts]
@@ -2361,7 +2385,8 @@ def bottomup_sweep_path(dev, tmp: str, root: str, start_path: str,
     import csv
 
     argv = ["--cfg", HIGHER_CFG, "--on_the_fly", "--device", str(dev),
-            "--distortions", ",".join(BU_SWEEP), "--modelDir",
+            "--num_devices", "1", "--distortions", ",".join(BU_SWEEP),
+            "--modelDir",
             os.path.join(tmp, "bu_sweep_out"), "--logDir",
             os.path.join(tmp, "bu_sweep_log"), "DATASET.ROOT", root,
             "DATASET.TEST_SET", "val8", "TEST.MODEL_FILE", start_path]
@@ -2569,7 +2594,7 @@ def int8_sweep_path(dev, tmp: str, start_path: str, dataset_cls,
     phase 7's val set. Returns the kernels' launches."""
     root = os.path.join(tmp, "sweep")
     argv = ["--cfg", CFG, "--on_the_fly", "--device", str(dev),
-            "--distortions", ",".join(INT8_SWEEP),
+            "--num_devices", "1", "--distortions", ",".join(INT8_SWEEP),
             "--modelDir", os.path.join(tmp, "int8_sweep_out"),
             "--logDir", os.path.join(tmp, "int8_sweep_log"), "DATASET.ROOT",
             root, "TEST.MODEL_FILE", start_path, "TEST.INT8", "True"]
@@ -2611,7 +2636,8 @@ def int8_teacher_path(dev, tmp: str, start_path: str, dataset_cls,
 
     argv = ["--cfg", CFG, "--advmix", "--sample_times", "3", "--alpha",
             str(ALPHA), "--adv_loss_weight", str(ADV_W), "--device", str(dev),
-            "--modelDir", os.path.join(tmp, "int8_train_out"), "--logDir",
+            "--num_devices", "1", "--modelDir",
+            os.path.join(tmp, "int8_train_out"), "--logDir",
             os.path.join(tmp, "int8_train_log"), "--load_from_D", start_path,
             "DATASET.ROOT", tmp, "TRAIN.END_EPOCH", "1", "PRINT_FREQ", "1",
             "TRAIN.INT8_TEACHER", "True"]
@@ -2955,6 +2981,386 @@ def int8_serving_phase(dev, tmp: str, start_path: str, dataset_cls,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: data parallelism on two ranks
+# ---------------------------------------------------------------------------
+
+DIST_TRAIN_IMAGES = 48  # of 4 people: TRAIN_ITERS global batches of 2 x 32
+DIST_F64_BATCH = 4      # the float64 check's global batch, 2 rows per rank
+DIST_TIME_ITERS = 5
+
+
+def build_synthetic(cfg, is_train, image_set=None):
+    """The ranks' `build_dataset`: `SyntheticCropCOCO`, from a module-level
+    function, so that it pickles into a spawned rank."""
+    return synthetic_coco_class()(cfg, is_train, image_set)
+
+
+def dist_devices() -> list:
+    """Two ranks: on two cards (NCCL) where the machine has them, else
+    both on cuda:0 (gloo: NCCL refuses two ranks on one device)."""
+    return (["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2
+            else ["cuda:0", "cuda:0"])
+
+
+def nccl_probe() -> float:
+    """A one-rank NCCL group on cuda:0 and one all-reduce of a buffer of
+    2s: NCCL initializes on the card even where both ranks share it."""
+    import torch.distributed as dist
+
+    from advmix_tpu_torch.parallel import dist as pdist
+
+    with tempfile.TemporaryDirectory() as d:
+        pdist.init_process_group(0, 1, ["cuda:0"], os.path.join(d, "init"))
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"backend {dist.get_backend()}")
+            x = torch.full((1 << 20,), 2.0, device="cuda:0")
+            pdist.all_reduce_mean_([x], dist.group.WORLD)
+            return float(x.min())
+        finally:
+            pdist.destroy_process_group()
+
+
+def f64_cfg(cfg):
+    """The W32 config for the float64 check: SGD (Adam's first step is lr x
+    sign(grad), which would hide the gradients' sizes), cross-replica BN."""
+    cfg = cfg.clone()
+    cfg.defrost()
+    cfg.TRAIN.OPTIMIZER = "sgd"
+    cfg.TRAIN.LR = 0.01
+    cfg.TRAIN.DTYPE = "float32"
+    cfg.TRAIN.CROSS_REPLICA_BN = True
+    cfg.freeze()
+    return cfg
+
+
+def f64_advmix_step(cfg, start_path: str, dev, group, rows: slice) -> dict:
+    """One float64 AdvMix step (SGD) from `start_path`'s D and the seeded G
+    (scaled as in `step_card_vs_cpu`) on `rows` of a seeded global batch of
+    DIST_F64_BATCH. Returns D's and G's state dicts on the CPU and the
+    start's."""
+    from advmix_tpu_torch.engine.state import create_advmix_state
+    from advmix_tpu_torch.engine.steps import make_advmix_step
+    from advmix_tpu_torch.models import (get_generator, get_pose_net,
+                                         load_model_file)
+
+    rng = np.random.RandomState(SEED + 14)
+    w, h = cfg.MODEL.IMAGE_SIZE
+    hw, hh = cfg.MODEL.HEATMAP_SIZE
+    n = DIST_F64_BATCH
+    j = cfg.MODEL.NUM_JOINTS
+    batch = dict(views=rng.randn(n, 9, h, w), target=rng.rand(n, j, hh, hw),
+                 target_weight=(rng.rand(n, j) > 0.2) * 1.0)
+    model = get_pose_net(cfg)
+    load_model_file(model, start_path)
+    g = get_generator()
+    with torch.no_grad():  # G's N(0, 0.001) init gives ~0 logits
+        for p_ in g.parameters():
+            p_.mul_(30.0)
+    model, g = model.double(), g.double()
+    start = {"d": {k: v.clone() for k, v in model.state_dict().items()},
+             "g": {k: v.clone() for k, v in g.state_dict().items()}}
+    state = create_advmix_state(cfg, model, g, dev, torch.float64)
+    step = make_advmix_step(state, cfg, alpha=ALPHA, adv_loss_weight=ADV_W,
+                            group=group)
+    step({k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(dev)
+          for k, v in batch.items()})
+    return dict(start=start, d={k: v.cpu() for k, v in
+                                state.model_d.state_dict().items()},
+                g={k: v.cpu() for k, v in state.model_g.state_dict().items()})
+
+
+def update_gap(got: dict, want: dict, start: dict) -> float:
+    """max |got - want| over the largest change of a float leaf, over the
+    whole net (as `step_card_vs_cpu` measures)."""
+    moved = diff = 0.0
+    for k, ref in want.items():
+        if ref.is_floating_point():
+            moved = max(moved, float((ref - start[k]).abs().max()))
+            diff = max(diff, float((got[k] - ref).abs().max()))
+    return diff / moved
+
+
+def f64_two_vs_one(cfg, start_path: str):
+    """On each rank of a group: `f64_advmix_step` on the rank's rows
+    (TRAIN.CROSS_REPLICA_BN, `f64_cfg`); rank 0 then takes the same step
+    as one rank on the whole batch and returns D's and G's `update_gap`
+    (None elsewhere)."""
+    from advmix_tpu_torch.parallel import dist as pdist
+
+    cfg = f64_cfg(cfg)
+    dev, rank, half = pdist.device(), pdist.rank(), DIST_F64_BATCH // 2
+    two = f64_advmix_step(cfg, start_path, dev, pdist.data_group(),
+                          slice(rank * half, (rank + 1) * half))
+    gaps = None
+    if pdist.is_main():
+        one = f64_advmix_step(cfg, start_path, dev, None, slice(None))
+        gaps = {net: update_gap(two[net], one[net], one["start"][net])
+                for net in ("d", "g")}
+    pdist.barrier()
+    return gaps
+
+
+def state_digest(module) -> str:
+    """A sha256 of every parameter's and buffer's bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in module.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().reshape(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_validate_check(cfg, start_path: str, dev, group, out_dir: str):
+    """The W32 eval (bf16, flip, batch 128 per rank) through validate() on
+    phase 4's val set, on this rank's shard, gathered to rank 0; rank 0
+    then runs the one-rank pass on the whole set and compares the results
+    json byte for byte. cuDNN autotuning is off, so both passes take the
+    same convolution algorithms."""
+    from advmix_tpu_torch.data import Loader
+    from advmix_tpu_torch.engine.steps import make_eval_step
+    from advmix_tpu_torch.engine.trainer import (make_eval_preprocessor,
+                                                 validate)
+    from advmix_tpu_torch.models import get_pose_net, load_model_file
+    from advmix_tpu_torch.models.layers import set_compute_dtype
+    from advmix_tpu_torch.parallel import dist as pdist
+
+    torch.backends.cudnn.benchmark = False
+    model = get_pose_net(cfg)
+    load_model_file(model, start_path)
+    model = set_compute_dtype(model.to(dev).eval(), torch.bfloat16)
+    dataset = build_synthetic(cfg, False)
+    prep = make_eval_preprocessor(cfg, dev)
+    batch = cfg.TEST.BATCH_SIZE_PER_GPU
+    t0 = time.perf_counter()
+    two = validate(cfg, make_eval_step(model, cfg, dataset.flip_pairs,
+                                       group=group), prep, dataset,
+                   Loader(dataset, batch, num_shards=pdist.world(),
+                          shard_index=pdist.rank()),
+                   os.path.join(out_dir, "two"), dev, group=group)
+    seconds = time.perf_counter() - t0
+    if not pdist.is_main():
+        return None
+    one = validate(cfg, make_eval_step(model, cfg, dataset.flip_pairs), prep,
+                   dataset, Loader(dataset, batch),
+                   os.path.join(out_dir, "one"), dev)
+    res = os.path.join("results", "keypoints_val2017_results_0.json")
+    same = [open(os.path.join(out_dir, d, res), "rb").read()
+            for d in ("one", "two")]
+    return dict(ap=(one[1], two[1]), json_equal=same[0] == same[1],
+                n=len(json.loads(same[0])), seconds=seconds)
+
+
+def time_rank_iteration(cfg, start_path: str, dev, group) -> dict:
+    """ms per AdvMix iteration (the step alone, bf16, batch 32 per rank:
+    CUDA events around DIST_TIME_ITERS back-to-back steps after 2 warm-ups,
+    host included), and with `group` the ms and bytes of the all-reduce of
+    D's and of G's gradients (CUDA events around 5 calls after one)."""
+    from advmix_tpu_torch.engine.state import create_advmix_state
+    from advmix_tpu_torch.engine.steps import make_advmix_step
+    from advmix_tpu_torch.engine.trainer import make_preprocessor
+    from advmix_tpu_torch.models import (get_generator, get_pose_net,
+                                         load_model_file)
+    from advmix_tpu_torch.parallel import dist as pdist
+
+    torch.backends.cudnn.benchmark = True
+    model = get_pose_net(cfg)
+    load_model_file(model, start_path)
+    state = create_advmix_state(cfg, model, get_generator(), dev,
+                                torch.bfloat16)
+    step = make_advmix_step(state, cfg, alpha=ALPHA, adv_loss_weight=ADV_W,
+                            group=group)
+    gen = torch.Generator().manual_seed(SEED + 15)
+    w, h = cfg.MODEL.IMAGE_SIZE
+    raw = {"image": torch.randint(0, 256, (32, h, w, 3), dtype=torch.uint8,
+                                  generator=gen).to(dev),
+           "joints": (torch.rand(32, 17, 2, generator=gen)
+                      * torch.tensor([w - 1.0, h - 1.0])).to(dev),
+           "joints_vis": torch.ones(32, 17, device=dev)}
+    batch = make_preprocessor(cfg, advmix=True, device=dev)(raw, gen)
+    out = dict(step_ms=wall_ms(lambda: step(batch), DIST_TIME_ITERS))
+    if group is not None:
+        for net, m in (("d", state.model_d), ("g", state.model_g)):
+            grads = pdist.grads_of(m)
+            out[f"{net}_bytes"] = sum(t.numel() * t.element_size()
+                                      for t in grads)
+            out[f"{net}_allreduce_ms"] = wall_ms(
+                lambda: pdist.all_reduce_mean_(grads, group), 5)
+            if torch.distributed.get_backend(group) == "nccl":
+                # where the all-reduce's device time goes: NCCL's own
+                # kernels vs the flat buffer's cat, copies back and division
+                _, by_name = profiled(
+                    lambda: pdist.all_reduce_mean_(grads, group), 1)
+                split = {"nccl": [0.0, 0], "other": [0.0, 0]}
+                for name, (us, n) in by_name.items():
+                    part = split["nccl" if "nccl" in name.lower()
+                                 else "other"]
+                    part[0] += us
+                    part[1] += n
+                out[f"{net}_trace"] = split
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_rank(cfg, start_path: str, tmp: str, train_argv) -> dict:
+    """Phase 14 on one rank of two (spawned by `parallel.dist.launch`):
+    the float64 check, the gathered validate(), the timings, and the
+    training run through `tools/train.main`. Each rank writes its kernels'
+    launches in that run to a file; rank 0's dict comes back."""
+    from advmix_tpu_torch.ops.cuda.decode_kernel import decode_heatmaps
+    from advmix_tpu_torch.ops.cuda.oks_kernel import (oks_matrix,
+                                                      oks_matrix_batched)
+    from advmix_tpu_torch.parallel import dist as pdist
+    from advmix_tpu_torch.tools import train as train_tool
+
+    torch.backends.cudnn.allow_tf32 = False  # as the main process
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, group, rank = pdist.device(), pdist.data_group(), pdist.rank()
+    out = {}
+
+    out["f64"] = f64_two_vs_one(cfg, start_path)
+    out["validate"] = rank_validate_check(cfg, start_path, dev, group,
+                                          os.path.join(tmp, "dist_val"))
+    out["time"] = time_rank_iteration(cfg, start_path, dev, group)
+
+    kernel_fns = (decode_heatmaps, oks_matrix_batched, oks_matrix)
+    for fn in kernel_fns:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = train_tool.main(train_argv, build_dataset=build_synthetic)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    with open(os.path.join(tmp, f"dist_launches_{rank}.json"), "w") as f:
+        json.dump(launch_counts(kernel_fns), f)
+    state = result["state"]
+    digests = pdist.gather_to_main(
+        {net: state_digest(m) for net, m in (("d", state.model_d),
+                                             ("g", state.model_g))})
+    out.update(history=result["history"], perf=result["perf"],
+               output_dir=result["output_dir"], digests=digests,
+               step=state.step)
+    return out
+
+
+def multi_rank_phase(dev, tmp: str, start_path: str) -> dict:
+    """Phase 14. Returns the kernels' launches, summed over the ranks, on
+    the two-rank training run."""
+    from advmix_tpu_torch.config import get_default_config
+    from advmix_tpu_torch.parallel.dist import launch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks share the card(s) with this process
+    devices = dist_devices()
+    log(f"[dist] ranks on {devices} ("
+        + ("NCCL" if devices[0] != devices[1] else
+           "gloo: one card, NCCL refuses two ranks on a device") + ")")
+    if devices == ["cuda:0", "cuda:0"]:
+        got = launch(nccl_probe, ["cuda:0"])
+        if got != 2.0:
+            raise AssertionError(f"one-rank NCCL all-reduce gave {got}")
+        log("[dist] a one-rank NCCL group on cuda:0 all-reduced 4 MB")
+
+    # the training run's data: 48 images of 4 people, and phase 4's val set
+    root = os.path.join(tmp, "dist")
+    write_coco(root, "train2017", [4] * DIST_TRAIN_IMAGES,
+               np.random.RandomState(SEED + 16))
+    val = "person_keypoints_val2017.json"
+    with open(os.path.join(tmp, "annotations", val)) as f, \
+            open(os.path.join(root, "annotations", val), "w") as g:
+        g.write(f.read())
+    cfg = get_default_config()
+    cfg.merge_from_file(CFG)
+    cfg.DATASET.ROOT = root
+    cfg.freeze()
+    argv = ["--cfg", CFG, "--advmix", "--sample_times", "3", "--alpha",
+            str(ALPHA), "--adv_loss_weight", str(ADV_W), "--modelDir",
+            os.path.join(tmp, "dist_out"), "--logDir",
+            os.path.join(tmp, "dist_log"), "--load_from_D", start_path,
+            "DATASET.ROOT", root, "TRAIN.END_EPOCH", "1", "PRINT_FREQ", "1"]
+    one_rank = time_rank_iteration(cfg, start_path, dev, None)
+    t0 = time.perf_counter()
+    out = launch(dist_rank, devices, cfg, start_path, tmp, argv)
+    wall = time.perf_counter() - t0
+
+    lim = 1e-9
+    log(f"[dist] one float64 AdvMix step (SGD, TRAIN.CROSS_REPLICA_BN, "
+        f"global batch {DIST_F64_BATCH}) on two ranks vs one rank on the "
+        f"whole batch: D {out['f64']['d']:.3g}, G {out['f64']['g']:.3g} of "
+        f"the update's range (limit {lim:g})")
+    if not (out["f64"]["d"] < lim and out["f64"]["g"] < lim):
+        raise AssertionError(f"two ranks vs one in float64: {out['f64']}")
+
+    v = out["validate"]
+    log(f"[dist] validate() on two ranks, gathered to rank 0 "
+        f"({v['seconds']:.2f} s): {v['n']} results, json "
+        f"{'equal' if v['json_equal'] else 'DIFFERENT'} byte for byte to "
+        f"the one-rank pass, AP {v['ap'][1]:.6f} vs {v['ap'][0]:.6f}")
+    if not (v["json_equal"] and v["ap"][0] == v["ap"][1]):
+        raise AssertionError(f"gathered validate() differs: {v}")
+
+    history = out["history"]
+    if len(history) != 1 or len(history[0]) != TRAIN_ITERS:
+        raise AssertionError(f"trained {[len(h) for h in history]} "
+                             "iterations on two ranks")
+    for i, m in enumerate(history[0]):
+        log(f"[dist] iteration {i}: loss_d {m['loss_d']:.6f} loss_g "
+            f"{m['loss_g']:.6f} acc {m['acc']:.4f} (global batch 64)")
+        if not (np.isfinite(m["loss_d"]) and np.isfinite(m["loss_g"])
+                and m["loss_d"] > 0 and m["loss_g"] < 0):
+            raise AssertionError(f"iteration {i}: losses {m}")
+    if not np.isfinite(out["perf"]) or out["step"] != TRAIN_ITERS:
+        raise AssertionError(f"score {out['perf']}, step {out['step']}")
+    d0 = out["digests"]
+    if any(d != d0[0] for d in d0):
+        raise AssertionError(f"the ranks' weights differ: {d0}")
+    for name in ("checkpoint.pth", "model_best.pth", "final_state"):
+        if not os.path.isfile(os.path.join(out["output_dir"], name)):
+            raise AssertionError(f"{name} was not written")
+    per_rank = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"dist_launches_{r}.json")) as f:
+            per_rank.append(json.load(f))
+    log(f"[dist] tools/train.main --advmix on two ranks, 1 epoch of "
+        f"{TRAIN_ITERS} iterations of 2 x 32 + validate(): "
+        f"{out['train_s']:.2f} s; D and G bit-identical on both ranks "
+        f"(sha256 {d0[0]['d'][:12]}, {d0[0]['g'][:12]}); checkpoint, "
+        f"model_best and final_state written; kernel launches per rank "
+        f"{per_rank}")
+    if not (per_rank[0]["decode_heatmaps"] > 0
+            and per_rank[1]["decode_heatmaps"] > 0
+            and per_rank[0]["oks_matrix_batched"] > 0
+            and per_rank[0]["oks_matrix"] > 0
+            and per_rank[1]["oks_matrix_batched"] == 0
+            and per_rank[1]["oks_matrix"] == 0):
+        raise AssertionError("decode must launch on every rank and OKS on "
+                             f"rank 0 only: {per_rank}")
+
+    t = out["time"]
+    log(f"[dist] AdvMix step bf16, batch 32 per rank: two ranks "
+        f"{t['step_ms']:.3f} ms/iteration (64 images), one rank "
+        f"{one_rank['step_ms']:.3f} ms/iteration (32 images); all-reduce "
+        f"of D's gradients {t['d_bytes'] / 1e6:.1f} MB in "
+        f"{t['d_allreduce_ms']:.3f} ms, of G's {t['g_bytes'] / 1e6:.1f} MB "
+        f"in {t['g_allreduce_ms']:.3f} ms"
+        + (" (both ranks on one card: a record, not a scaling figure)"
+           if devices[0] == devices[1] else ""))
+    for net in ("d", "g"):
+        if f"{net}_trace" in t:
+            tr = t[f"{net}_trace"]
+            log(f"[dist] torch.profiler, one all-reduce of {net.upper()}'s "
+                f"gradients on rank 0: NCCL kernels {tr['nccl'][0]:.1f} us "
+                f"in {tr['nccl'][1]} launches, the other device work (cat, "
+                f"copies back, division) {tr['other'][0]:.1f} us in "
+                f"{tr['other'][1]} launches")
+    log(f"[dist] phase 14: {time.perf_counter() - t_phase:.1f} s (ranks "
+        f"{wall:.1f} s)")
+    return {k: per_rank[0][k] + per_rank[1][k] for k in per_rank[0]}
+
+
 def card_matches_cpu(name: str, model, dev, image_size) -> None:
     """The model on the card against the same model on the CPU on one
     seeded random image, leaving it f32 on the card. In float64 the two
@@ -3041,7 +3447,9 @@ def synthetic_coco_class():
     return SyntheticCropCOCO
 
 
-def main() -> None:
+def main(argv=()) -> None:
+    if argv:
+        raise SystemExit(f"chip_smoke.py takes no arguments, not {argv}")
     # ---- 1. card ----------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -3245,6 +3653,9 @@ def main() -> None:
                                     first_batch(loader, prep, dev),
                                     export_jobs))
 
+    # ---- 14. data parallelism on two ranks ------------------------------
+    paths["multi_rank"] = multi_rank_phase(dev, tmp, start_path)
+
     kernels = []
     for k in ("decode_heatmaps", "oks_matrix_batched", "oks_matrix"):
         r = dict(report[k])
@@ -3260,4 +3671,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -19,7 +19,9 @@ on at most 0.5% of values. The bottom-up infer (plain PyTorch, no hand
 kernel) in float64: the card equals the CPU to 1e-12 of the range. The
 int8 convolution (im2col + `torch._int_mm`, a library GEMM) is bit-equal
 to its CPU route, a float64 convolution of the codes; an exported program
-launches the decode kernel once per call.
+launches the decode kernel once per call. Two ranks on the card(s) take
+the float64 AdvMix step of one rank on their halves of its batch, within
+1e-9 of the update's range.
 """
 
 import numpy as np
@@ -459,3 +461,22 @@ def test_cuda_exported_program_launches_decode(cuda, tmp_path):
     assert decode_heatmaps.launches == before + 2
     with pytest.raises(ValueError, match="exported on cuda"):
         serve_tool.PoseServer(str(tmp_path / "e"), "cpu")
+
+
+@pytest.mark.gpu
+def test_cuda_two_ranks_match_one_rank_float64(cuda, tmp_path):
+    """Two ranks (NCCL on two cards, else gloo on one) take one float64
+    AdvMix step with TRAIN.CROSS_REPLICA_BN on their halves of a batch of
+    4; one rank takes it on the whole batch: D's and G's updates agree
+    within 1e-9 of their range."""
+    from advmix_tpu_torch.config import load_config
+    from advmix_tpu_torch.models import get_pose_net, he_reinit_convs
+    from advmix_tpu_torch.parallel.dist import launch
+    from chip_smoke import dist_devices, f64_two_vs_one
+
+    cfg = load_config("experiments/synthetic/res18_64x64_smoke.yaml")
+    model = get_pose_net(cfg)
+    he_reinit_convs(model, torch.Generator().manual_seed(4))
+    torch.save(model.state_dict(), str(tmp_path / "d.pth"))
+    gaps = launch(f64_two_vs_one, dist_devices(), cfg, str(tmp_path / "d.pth"))
+    assert gaps["d"] < 1e-9 and gaps["g"] < 1e-9, gaps

@@ -1,5 +1,7 @@
-"""The port stands alone: every module of advmix_tpu_torch, and
-chip_smoke.py, import with `jax`, its libraries and `advmix_tpu` blocked;
+"""The port stands alone: every module of advmix_tpu_torch (the
+data-parallel `parallel/` among them), chip_smoke.py and the module the
+multi-rank tests' ranks import, tests/torch_dist_worker.py, import with
+`jax`, its libraries and `advmix_tpu` blocked;
 and without a card the entry points refuse to run unless asked for the
 CPU."""
 
@@ -33,7 +35,11 @@ names = [m.name for m in pkgutil.walk_packages(advmix_tpu_torch.__path__,
                                                "advmix_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert "advmix_tpu_torch.parallel.dist" in names
 import chip_smoke
+
+sys.path.insert(0, "tests")
+import torch_dist_worker
 
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
