@@ -16,8 +16,9 @@ arithmetic in at least f32 and hand the input's dtype on, as the JAX
 
 Cross-replica BatchNorm (TRAIN.CROSS_REPLICA_BN over several ranks): inside
 `cross_replica_bn(group)` every train-mode `BatchNorm2d` averages its E[x]
-and E[x^2] over the group and takes var = max(E[x^2] - E[x]^2, 0), the
-JAX `TorchBatchNorm` with an `axis_name` (`layers.py:60-80, 90-115`).
+and E[x^2] over the group (or a ("dcn", "data") mesh's ranks) and takes
+var = max(E[x^2] - E[x]^2, 0), the JAX `TorchBatchNorm` with an
+`axis_name` (`layers.py:60-80, 90-115`).
 Outside it, and in eval mode, the statistics are the rank's own.
 """
 
@@ -64,7 +65,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         return super().forward(x.to(dt)).to(x.dtype)
 
     def _cross_replica(self, x: torch.Tensor, group) -> torch.Tensor:
-        from ..parallel.dist import AllReduceMean
+        from ..parallel.dist import AllReduceMean, group_size
 
         n = x.numel() // x.shape[1]
         stats = AllReduceMean.apply(
@@ -73,7 +74,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         mean, mean2 = stats[0], stats[1]
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         with torch.no_grad():
-            n_all = float(n * torch.distributed.get_world_size(group))
+            n_all = float(n * group_size(group))
             m = self.momentum
             self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
             self.running_var.copy_((1 - m) * self.running_var

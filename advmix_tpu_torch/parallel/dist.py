@@ -16,6 +16,13 @@ overwrite BN statistics from rank 0 where the JAX package averages them.
 A world of one rank creates no process group: every function here is then
 a no-op, and the steps run their single-device code.
 
+`get_mesh` names axes over the group, as `mesh.py:get_mesh` does over the
+devices: a ("dcn", "data") mesh (`num_slices`) is still pure data
+parallelism, and the collectives below take it in place of a group and
+reduce within "data", then across "dcn"; a ("data", "model") mesh
+(`model_parallel`) shards one image's rows over "model"
+(`parallel/spatial.py`).
+
 Backends: NCCL when each rank has a card of its own, gloo when ranks share
 a device (the CPU, or one card). Host-side objects (prediction shards,
 counts, the score) always go over a gloo group, as the JAX package's
@@ -32,6 +39,7 @@ import traceback
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..utils.device import resolve_device
 
@@ -62,6 +70,67 @@ def device() -> torch.device:
 def data_group():
     """The group the steps reduce over: None for a world of one rank."""
     return dist.group.WORLD if world() > 1 else None
+
+
+def get_mesh(num_devices: int | None = None, axis_name: str = "data",
+             num_slices: int | None = None,
+             model_parallel: int | None = None) -> DeviceMesh:
+    """Named axes over the process group's ranks (`mesh.py:21-50`): a 1-D
+    (axis_name,) mesh by default; `num_slices` > 1 gives ("dcn", axis_name),
+    slice s holding ranks [s*n/num_slices, (s+1)*n/num_slices); and
+    `model_parallel` = k > 1 gives (axis_name, "model"), model group d holding
+    ranks [d*k, (d+1)*k), so that rank r is in data group r % k: the
+    layouts of the JAX reshape of the device list. The two options are
+    mutually exclusive. A mesh covers the whole group (`num_devices` is
+    None or the world size), which must exist."""
+    n = world() if num_devices is None else int(num_devices)
+    if model_parallel and model_parallel > 1:
+        assert not (num_slices and num_slices > 1), \
+            "num_slices and model_parallel are mutually exclusive"
+        assert n % model_parallel == 0, (n, model_parallel)
+        shape, names = (n // model_parallel, model_parallel), (axis_name,
+                                                               "model")
+    elif num_slices and num_slices > 1:
+        assert n % num_slices == 0, (n, num_slices)
+        shape, names = (num_slices, n // num_slices), ("dcn", axis_name)
+    else:
+        shape, names = (n,), (axis_name,)
+    if not dist.is_initialized() or n != world():
+        raise RuntimeError(f"a mesh of {n} ranks needs a process group of "
+                           f"{n} ranks (this process is in one of "
+                           f"{world()}): start them with `launch`")
+    return init_device_mesh(device().type, shape, mesh_dim_names=names)
+
+
+def data_axes(mesh: DeviceMesh, axis_name: str = "data") -> tuple:
+    """The axes a batch shards over and gradients reduce over
+    (`mesh.py:53-59`): ("dcn", axis_name) on a multi-slice mesh, else
+    (axis_name,)."""
+    if "dcn" in mesh.mesh_dim_names:
+        return ("dcn", axis_name)
+    return (axis_name,)
+
+
+def group_size(group) -> int:
+    """The ranks a reduction over `group` (a group or a mesh) spans."""
+    if isinstance(group, DeviceMesh):
+        n = 1
+        for axis in data_axes(group):
+            n *= group.size(group.mesh_dim_names.index(axis))
+        return n
+    return dist.get_world_size(group)
+
+
+def all_reduce_(t: torch.Tensor, group) -> None:
+    """Sum `t` in place over `group`. A mesh reduces hierarchically, over
+    its data axes from the innermost: within "data", then across "dcn", as
+    XLA schedules a `pmean` over `data_axes` (intra-slice, then the
+    cross-slice hop)."""
+    if isinstance(group, DeviceMesh):
+        for axis in reversed(data_axes(group)):
+            dist.all_reduce(t, group=group.get_group(axis))
+    else:
+        dist.all_reduce(t, group=group)
 
 
 def backend_for(devices) -> str:
@@ -135,18 +204,18 @@ def all_reduce_mean_(tensors, group) -> None:
     """`lax.pmean` in place: each tensor becomes the mean over the ranks
     (a sum, then a division by the world size, as `pmean` computes it).
     Tensors of one dtype go as one flat buffer: W32 D's ~1,000 gradients
-    make one call."""
+    make one call. `group` is a group or a mesh (`all_reduce_`); the
+    division is by every rank it spans."""
     ts = list(tensors)
     if ts:
-        _coalesced(ts, lambda f, g: dist.all_reduce(f, group=g), group,
-                   float(dist.get_world_size(group)))
+        _coalesced(ts, all_reduce_, group, float(group_size(group)))
 
 
 def all_reduce_sum_(tensors, group) -> None:
     """`lax.psum` in place."""
     ts = list(tensors)
     if ts:
-        _coalesced(ts, lambda f, g: dist.all_reduce(f, group=g), group, None)
+        _coalesced(ts, all_reduce_, group, None)
 
 
 def grads_of(module) -> list:
@@ -182,20 +251,20 @@ class AllReduceMean(torch.autograd.Function):
     """The mean over the ranks with its transpose: forward and backward
     each sum over the group and divide by its size (JAX's `pmean` and its
     transpose under `shard_map`). Cross-replica BatchNorm averages its
-    E[x] and E[x^2] through it."""
+    E[x] and E[x^2] through it. `group` is a group or a mesh."""
 
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
         y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y / dist.get_world_size(group)
+        all_reduce_(y, group)
+        return y / group_size(group)
 
     @staticmethod
     def backward(ctx, grad):
         g = grad.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g / dist.get_world_size(ctx.group), None
+        all_reduce_(g, ctx.group)
+        return g / group_size(ctx.group), None
 
 
 # ---------------------------------------------------------------------------

@@ -116,11 +116,29 @@ Phases, each fatal on failure:
    of 2 x 32, the gathered validate(), a checkpoint): D and G bit-identical
    on both ranks, decode launched on both, OKS on rank 0 only (each rank
    writes its counts to a file);
-15. print a `kernels` JSON line and, last, the device JSON line.
+15. spatial partitioning (`parallel/spatial.py`) on two ranks placed as in
+   phase 14, a ("data", "model") mesh of model_parallel 2: HigherHRNet-W32
+   512x512 (phase 12's weights, batch 2) on each rank's rows against the
+   one-rank forward, float64 within 1e-12 of the range, f32 (TF32 off)
+   within 3x the one-rank f32 forward's own gap to the float64 one (the
+   CPU tests' rtol 2e-4 / atol 5e-5 reported); the f32 forward timed at
+   model_parallel 1 (one rank) and 2, its exchanges counted and replayed
+   alone; W32 256x192's eval step (flip test, the decode kernel) on the
+   spatial forward of phase 4's weights in float64 with f32 heatmaps, its
+   preds and maxvals equal to the unsharded step's bit for bit, the
+   kernels' launches counted on each rank;
+16. the tools: `tools/hbm_peak` at 512 MiB (GB/s of its two patterns),
+   `tools/loader_bench` over 256 COCO-sized JPEGs (both host modes),
+   `tools/profile` over 3 AdvMix W32 steps at batch 32 with the measured
+   bandwidth as its roofline, and `tools/parity_check` on phase 4's val
+   set with phase 4's weights and an `--expect_ap` it must beat (exit 0;
+   decode and the batched OKS launched);
+17. print a `kernels` JSON line and, last, the device JSON line.
 
-The entry-point calls of phases 5-13 pass `--num_devices 1` (the tools'
-default, 0, takes every card): on a machine of several cards they run on
-cuda:0 as on a machine of one, and only phase 14 runs several ranks.
+The entry-point calls of phases 5-13 and 16 pass `--num_devices 1` (the
+tools' default, 0, takes every card): on a machine of several cards they
+run on cuda:0 as on a machine of one, and only phases 14 and 15 run
+several ranks.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -660,40 +678,21 @@ TRAIN_ITERS = 3
 ALPHA, ADV_W = 0.1, 0.7
 
 
-def family_of(kernel_name: str) -> str:
-    """A coarse family for a profiler kernel name."""
-    n = kernel_name.lower()
-    for key, fam in (("batch_norm", "batch norm"), ("batchnorm", "batch norm"),
-                     ("bn_fw", "batch norm"),
-                     ("bn_bw", "batch norm"), ("wgrad", "conv wgrad"),
-                     ("dgrad", "conv dgrad"), ("gemm", "conv/gemm"),
-                     ("conv", "conv/gemm"), ("cutlass", "conv/gemm"),
-                     ("xmma", "conv/gemm"), ("copy", "dtype cast / copy"),
-                     ("scatter", "scatter/gather"), ("gather", "scatter/gather"),
-                     ("multi_tensor", "optimizer (foreach)"),
-                     ("upsample", "upsample"), ("reduce", "reduce"),
-                     ("elementwise", "elementwise")):
-        if key in n:
-            return fam
-    return "other"
-
-
 def profile_by_family(fn, steps: int = 2) -> dict:
-    """Device busy share and device time by kernel family of `steps` calls
-    of fn() (an AdvMix iteration, an eval step), from torch.profiler."""
+    """Device busy share and device time by kernel family
+    (`utils/profiling.family_of`) of `steps` calls of fn() (an AdvMix
+    iteration, an eval step), from torch.profiler."""
+    from advmix_tpu_torch.utils.profiling import by_family
+
     wall_us, by_name = profiled(fn, steps)
     busy_us = sum(t for t, _ in by_name.values())
-    fams: dict = {}
-    for name, (t, n) in by_name.items():
-        ft, fn_ = fams.get(family_of(name), (0.0, 0))
-        fams[family_of(name)] = (ft + t, fn_ + n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return dict(
         wall_ms=wall_us / steps / 1e3, busy_ms=busy_us / steps / 1e3,
         busy_share=busy_us / wall_us,
         kernels=sum(n for _, n in by_name.values()) // steps,
-        families={k: (t / steps / 1e3, n // steps) for k, (t, n) in
-                  sorted(fams.items(), key=lambda kv: -kv[1][0])},
+        families={k: (t / steps / 1e3, n // steps)
+                  for k, (t, n) in by_family(by_name).items()},
         top=[(name[:80], t / steps / 1e3, n // steps)
              for name, (t, n) in top])
 
@@ -3361,6 +3360,307 @@ def multi_rank_phase(dev, tmp: str, start_path: str) -> dict:
     return {k: per_rank[0][k] + per_rank[1][k] for k in per_rank[0]}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: one image's rows over two ranks (parallel/spatial.py)
+# ---------------------------------------------------------------------------
+
+SPATIAL_BATCH = 2        # HigherHRNet-W32 512x512 images per forward
+SPATIAL_EVAL_BATCH = 32  # W32 256x192 crops of phase 4's val set
+SPATIAL_ITERS = 5
+SPATIAL_RTOL, SPATIAL_ATOL = 2e-4, 5e-5  # the CPU tests' f32 tolerance
+# the f32 spatial forward's gap to the float64 forward, at most this many
+# times the one-rank f32 forward's own gap to it
+SPATIAL_F32_VS_ONE = 3.0
+
+
+class F32Heads(torch.nn.Module):
+    """`forward` (a float64 model, or its spatial forward) with its
+    heatmaps handed on in f32, the decode kernel's input type."""
+
+    def __init__(self, forward):
+        super().__init__()
+        self.fwd = forward
+
+    def forward(self, x):
+        return self.fwd(x.double()).float()
+
+
+def spatial_higher_check(cfg, start_path: str, dev, mesh) -> dict:
+    """HigherHRNet-W32 512x512 on this rank's rows (model_parallel 2)
+    against the one-rank forward of the whole batch: in float64 within
+    1e-12 of the range; in f32 (TF32 off) as close to the float64 forward
+    as the one-rank f32 forward, within SPATIAL_F32_VS_ONE times its gap.
+    The CPU tests' f32 tolerance (rtol 2e-4, atol 5e-5) is reported, not
+    required: on the card the one-rank f32 forward of this deep net is
+    itself ~1e-4 of the range from the float64 one, and cuDNN picks other
+    algorithms for the row blocks' shapes. Then the f32 spatial forward
+    timed, its exchanges counted and replayed alone. Returns rank 0's
+    numbers (every rank checks its own)."""
+    import torch.distributed as dist
+
+    from advmix_tpu_torch.models import get_pose_net
+    from advmix_tpu_torch.parallel import dist as pdist
+    from advmix_tpu_torch.parallel.spatial import (make_spatial_forward,
+                                                   spatial_shard)
+
+    model = get_pose_net(cfg)
+    model.load_state_dict(torch.load(start_path, map_location="cpu"))
+    model = model.to(dev).eval()
+    x = torch.from_numpy(np.random.RandomState(SEED + 15).randn(
+        SPATIAL_BATCH, 3, *cfg.MODEL.IMAGE_SIZE[::-1]).astype(np.float32))
+    out, ref = {}, None
+    for dtype in (torch.float64, torch.float32):
+        model = model.to(dtype)
+        xd = x.to(dev, dtype)
+        fn = make_spatial_forward(model, mesh)
+        got = fn(spatial_shard(xd, mesh))
+        with torch.no_grad():
+            want = model(xd)
+        ref = want if ref is None else ref  # the float64 forward
+        errs = []
+        for g, w, r in zip(got, want, ref):
+            if g.shape != w.shape or not torch.isfinite(g).all():
+                raise AssertionError(f"spatial output {tuple(g.shape)} vs "
+                                     f"{tuple(w.shape)}, or not finite")
+            span = float(r.abs().max())
+            errs.append(dict(
+                range=span, gap=float((g - w).abs().max()) / span,
+                close=bool(torch.allclose(g, w, rtol=SPATIAL_RTOL,
+                                          atol=SPATIAL_ATOL)),
+                spatial_vs_f64=float((g.double() - r).abs().max()) / span,
+                one_vs_f64=float((w.double() - r).abs().max()) / span))
+        out[str(dtype).replace("torch.", "")] = errs
+        if dtype == torch.float64 and max(e["gap"] for e in errs) >= 1e-12:
+            raise AssertionError(f"float64 spatial forward off by {errs} "
+                                 "of the range")
+        if dtype == torch.float32 and not all(
+                e["spatial_vs_f64"] <= SPATIAL_F32_VS_ONE * e["one_vs_f64"]
+                for e in errs):
+            raise AssertionError(f"f32 spatial forward: {errs}")
+    out["exchanges"] = fn.stats["exchanges"]
+    out["halo_mb"] = fn.stats["bytes"] / 1e6
+    xs = spatial_shard(x.to(dev), mesh)
+    out["spatial_ms"] = wall_ms(lambda: fn(xs), SPATIAL_ITERS)
+    # the exchanges alone: the same all_reduces on buffers of their shapes
+    group = mesh.get_group("model")
+    bufs = [torch.zeros(s, dtype=d, device=dev)
+            for s, d in fn.stats["shapes"]]
+
+    def halos():
+        for b in bufs:
+            dist.all_reduce(b, group=group)
+
+    out["halo_ms"] = wall_ms(halos, SPATIAL_ITERS)
+    pdist.barrier()
+    if pdist.is_main():
+        xd = x.to(dev)
+        with torch.no_grad():
+            out["one_rank_ms"] = wall_ms(lambda: model(xd), SPATIAL_ITERS)
+    pdist.barrier()
+    return out
+
+
+def spatial_decode_check(cfg, start_path: str, dev, mesh, batch: dict,
+                         flip_pairs, tmp: str) -> dict:
+    """W32 256x192 in float64 with its heatmaps handed on in f32
+    (`F32Heads`): the eval step (flip test, decode kernel) on the spatial
+    forward against the same step on the unsharded forward, preds and
+    maxvals bit for bit. Counts the decode kernel's launches in the
+    spatial step's run on this rank and writes them to a file."""
+    from advmix_tpu_torch.engine.steps import make_eval_step
+    from advmix_tpu_torch.models import get_pose_net
+    from advmix_tpu_torch.ops.cuda.decode_kernel import decode_heatmaps
+    from advmix_tpu_torch.ops.cuda.oks_kernel import (oks_matrix,
+                                                      oks_matrix_batched)
+    from advmix_tpu_torch.parallel import dist as pdist
+    from advmix_tpu_torch.parallel.spatial import (make_spatial_forward,
+                                                   spatial_shard)
+
+    model = get_pose_net(cfg)
+    model.load_state_dict(torch.load(start_path, map_location="cpu"))
+    model = model.to(dev).double().eval()
+    fn = make_spatial_forward(model, mesh)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    plain = make_eval_step(F32Heads(model), cfg, flip_pairs)
+    spatial = make_eval_step(
+        F32Heads(lambda x: fn(spatial_shard(x, mesh))), cfg, flip_pairs)
+    kernel_fns = (decode_heatmaps, oks_matrix_batched, oks_matrix)
+    for k in kernel_fns:
+        k.launches = 0
+    preds, maxvals, _ = spatial(batch)
+    torch.cuda.synchronize()
+    counts = launch_counts(kernel_fns)
+    with open(os.path.join(tmp, f"spatial_launches_{pdist.rank()}.json"),
+              "w") as f:
+        json.dump(counts, f)
+    want_p, want_m, _ = plain(batch)
+    if not (torch.equal(preds, want_p) and torch.equal(maxvals, want_m)):
+        raise AssertionError(
+            "the spatial eval step's decode differs from the unsharded "
+            f"one's: preds {float((preds - want_p).abs().max()):.3g}, "
+            f"maxvals {float((maxvals - want_m).abs().max()):.3g}")
+    return {"images": int(preds.shape[0]), "launches": counts}
+
+
+def spatial_rank(higher_start: str, w32_start: str, batch: dict,
+                 flip_pairs, tmp: str) -> dict:
+    """Phase 15 on one rank of two (spawned by `parallel.dist.launch`), on
+    a ("data", "model") mesh of model_parallel 2."""
+    from advmix_tpu_torch.config import get_default_config
+    from advmix_tpu_torch.parallel import dist as pdist
+
+    torch.backends.cudnn.allow_tf32 = False  # as the main process
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = pdist.device()
+    mesh = pdist.get_mesh(model_parallel=2)
+    cfgs = []
+    for path in (HIGHER_CFG, CFG):
+        cfg = get_default_config()
+        cfg.merge_from_file(path)
+        cfg.freeze()
+        cfgs.append(cfg)
+    out = {"higher": spatial_higher_check(cfgs[0], higher_start, dev, mesh)}
+    out["decode"] = spatial_decode_check(cfgs[1], w32_start, dev, mesh,
+                                         batch, flip_pairs, tmp)
+    return out
+
+
+def spatial_phase(dev, tmp: str, start_path: str, batch: dict,
+                  flip_pairs) -> dict:
+    """Phase 15. Returns the kernels' launches on the spatial eval step,
+    summed over the ranks."""
+    from advmix_tpu_torch.parallel.dist import launch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    devices = dist_devices()
+    higher_start = os.path.join(tmp, "bu_start.pth")  # phase 12's weights
+    host_batch = {k: batch[k][:SPATIAL_EVAL_BATCH].cpu()
+                  for k in ("image", "target", "target_weight", "center",
+                            "scale")}
+    out = launch(spatial_rank, devices, higher_start, start_path, host_batch,
+                 flip_pairs, tmp)
+    h = out["higher"]
+    log(f"[spatial] ranks on {devices} ("
+        + ("NCCL" if devices[0] != devices[1] else "gloo, one card") + ")")
+    log(f"[spatial] HigherHRNet-W32 512x512, batch {SPATIAL_BATCH}, "
+        f"model_parallel 2 vs one rank, per scale (gaps over the output's "
+        f"range): float64 {h['float64']} (limit 1e-12); f32 {h['float32']} "
+        f"(TF32 off; limit: spatial_vs_f64 <= {SPATIAL_F32_VS_ONE} x "
+        f"one_vs_f64; 'close': within rtol {SPATIAL_RTOL}, atol "
+        f"{SPATIAL_ATOL})")
+    log(f"[spatial] f32 forward: model_parallel 1 (one rank, the whole "
+        f"batch) {h['one_rank_ms']:.3f} ms, model_parallel 2 "
+        f"{h['spatial_ms']:.3f} ms per batch of {SPATIAL_BATCH}; "
+        f"{h['exchanges']} exchanges per forward, {h['halo_mb']:.2f} MB of "
+        f"buffers, {h['halo_ms']:.3f} ms when replayed alone")
+    per_rank = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"spatial_launches_{r}.json")) as f:
+            per_rank.append(json.load(f))
+    log(f"[spatial] W32 256x192 eval step, float64 forward with f32 "
+        f"heatmaps, {out['decode']['images']} crops: the spatial forward's "
+        f"preds and maxvals equal the unsharded step's bit for bit; "
+        f"launches per rank {per_rank}")
+    if not all(p["decode_heatmaps"] >= 1 for p in per_rank):
+        raise AssertionError(f"decode did not launch on a rank: {per_rank}")
+    log(f"[spatial] phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return {k: per_rank[0][k] + per_rank[1][k] for k in per_rank[0]}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the tools: bandwidth, loader, step profile, parity harness
+# ---------------------------------------------------------------------------
+
+HBM_MB, HBM_ITERS = 512, 20
+LOADER_IMAGES = 256
+PROFILE_STEPS = 3
+
+
+def run_tool(module: str, argv: list, timeout: float = 300) -> str:
+    """`python -m advmix_tpu_torch.tools.<module> argv` in a process of its
+    own (the profiler's first session there, as a user runs the tool);
+    returns its standard output, which is logged; fails on a non-zero
+    exit."""
+    r = subprocess.run([sys.executable, "-m",
+                        f"advmix_tpu_torch.tools.{module}", *argv],
+                       cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                       capture_output=True, text=True, timeout=timeout)
+    for line in r.stdout.splitlines():
+        if not line.startswith("20"):  # the tools' logger's time stamps
+            log(f"[tools]   {line}")
+    if r.returncode:
+        raise AssertionError(f"tools/{module} exit {r.returncode}:\n"
+                             f"{r.stderr[-3000:]}")
+    return r.stdout
+
+
+def tooling_phase(dev, tmp: str, start_path: str, ap4: float,
+                  kernel_fns) -> dict:
+    """Phase 16. Returns the kernels' launches on the parity check."""
+    from advmix_tpu_torch.tools import loader_bench, parity_check
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = run_tool("hbm_peak", ["--mb", str(HBM_MB), "--iters",
+                                str(HBM_ITERS)])
+    hbm = json.loads(out.strip().splitlines()[-1])
+    if not 0 < hbm["measured_peak_gbs"] < 1.05 * PEAK_BYTES / 1e9:
+        raise AssertionError(f"hbm_peak: {hbm}")
+    hbm_file = os.path.join(tmp, "hbm_peak.json")
+    with open(hbm_file, "w") as f:
+        f.write(json.dumps(hbm) + "\n")
+    log(f"[tools] hbm_peak {HBM_MB} MiB x {HBM_ITERS}: scale "
+        f"{hbm['scale']:.1f} GB/s, triad {hbm['triad']:.1f} GB/s "
+        f"({hbm['card']}; the bounds divide by {PEAK_BYTES / 1e9:.0f})")
+
+    t0 = time.perf_counter()
+    lb = loader_bench.loader_bench(n=LOADER_IMAGES, batch=32)
+    log(f"[tools] loader_bench, {LOADER_IMAGES} COCO-sized JPEGs, batch "
+        f"32, {lb['threads']} threads: decode + warp "
+        f"{lb['decode_warp_img_s']:.1f} img/s "
+        f"({lb['decode_warp_img_s_per_thread']:.1f} per thread), decode "
+        f"only {lb['decode_only_img_s']:.1f} img/s "
+        f"({lb['decode_only_img_s_per_thread']:.1f} per thread) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not (lb["decode_warp_img_s"] > 0 and lb["decode_only_img_s"] > 0):
+        raise AssertionError(f"loader_bench: {lb}")
+
+    t0 = time.perf_counter()
+    out = run_tool("profile", [
+        "--cfg", CFG, "--advmix", "--sample_times", "3", "--alpha",
+        str(ALPHA), "--adv_loss_weight", str(ADV_W), "--num_devices", "1",
+        "--profile_steps", str(PROFILE_STEPS), "--per_kernel", "8",
+        "--peak_gbs", hbm_file, "--trace_dir", os.path.join(tmp, "trace")])
+    total = [float(ln.split()[1]) for ln in out.splitlines()
+             if ln.startswith("TOTAL")]
+    if not (total and total[0] > 0):
+        raise AssertionError("tools/profile traced no device time")
+    log(f"[tools] tools/profile, {PROFILE_STEPS} AdvMix W32 steps at batch "
+        f"32: {total[0]:.3f} device ms per step "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    for k in kernel_fns:
+        k.launches = 0
+    t0 = time.perf_counter()
+    expect = 100.0 * ap4 - 0.5
+    rc = parity_check.main(
+        ["--cfg", CFG, "--ckpt", start_path, "--allow_random_init",
+         "--expect_ap", str(expect), "--tol", "0.3", "DATASET.ROOT", tmp,
+         "OUTPUT_DIR", os.path.join(tmp, "parity")],
+        build_dataset=build_synthetic)
+    torch.cuda.synchronize()
+    launches = launch_counts(kernel_fns)
+    log(f"[tools] parity_check on phase 4's val set with its weights, "
+        f"--expect_ap {expect:.4f}: exit {rc} "
+        f"({time.perf_counter() - t0:.1f} s), launches {launches}")
+    if rc != 0 or launches["decode_heatmaps"] < 1 or \
+            launches["oks_matrix_batched"] < 1:
+        raise AssertionError(f"parity_check exit {rc}, launches {launches}")
+    log(f"[tools] phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def card_matches_cpu(name: str, model, dev, image_size) -> None:
     """The model on the card against the same model on the CPU on one
     seeded random image, leaving it f32 on the card. In float64 the two
@@ -3655,6 +3955,14 @@ def main(argv=()) -> None:
 
     # ---- 14. data parallelism on two ranks ------------------------------
     paths["multi_rank"] = multi_rank_phase(dev, tmp, start_path)
+
+    # ---- 15. one image's rows over two ranks ------------------------------
+    paths["spatial"] = spatial_phase(dev, tmp, start_path,
+                                     first_batch(loader, prep, dev),
+                                     dataset.flip_pairs)
+
+    # ---- 16. the tools ------------------------------------------------------
+    paths["parity"] = tooling_phase(dev, tmp, start_path, ap, kernel_fns)
 
     kernels = []
     for k in ("decode_heatmaps", "oks_matrix_batched", "oks_matrix"):

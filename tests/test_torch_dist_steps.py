@@ -158,9 +158,9 @@ def _port_batches(case):
             for b in case["batches"]]
 
 
-def jax_run(case):
-    """The JAX step of `case` on a 2-device mesh: D's (and G's) leaves and
-    the metrics after the case's iterations."""
+def jax_run(case, mesh=None):
+    """The JAX step of `case` on `mesh` (default a 2-device mesh): D's (and
+    G's) leaves and the metrics after the case's iterations."""
     kind, jcfg = case["kind"], case["jcfg"]
     jdt = jnp.float64 if case["dtype"] == "float64" else jnp.float32
     with enable_x64(case["dtype"] == "float64"):
@@ -168,7 +168,7 @@ def jax_run(case):
             "bottomup") else jax_get_pose_net(jcfg, dtype=jdt))
         vd = unflatten(case["flat_d"])
         tx_d = optax.sgd(case["lr_d"])
-        mesh = get_mesh(2)
+        mesh = get_mesh(2) if mesh is None else mesh
         if "advmix" in kind:
             jg = JaxUnet(input_nc=9, num_downs=case["num_downs"], ngf=NGF,
                          dtype=jdt)

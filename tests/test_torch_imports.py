@@ -240,3 +240,44 @@ def test_serving_entry_points_without_card_raise(tmp_path, tool, args):
     assert proc.returncode != 0
     assert "no CUDA device is available" in proc.stderr
     assert not os.listdir(tmp_path)
+
+
+SLICE8_MODULES = [("parallel.spatial", "advmix_tpu/parallel/spatial.py"),
+                  ("parallel.dist", "advmix_tpu/parallel/mesh.py"),
+                  ("utils.profiling", "advmix_tpu/utils/profiling.py"),
+                  ("utils.summary", "advmix_tpu/utils/summary.py"),
+                  ("tools.profile", "tools/profile.py"),
+                  ("tools.hbm_peak", "tools/hbm_peak.py"),
+                  ("tools.loader_bench", "tools/loader_bench.py"),
+                  ("tools.parity_check", "tools/parity_check.py")]
+
+
+@pytest.mark.parametrize("name,counterpart", SLICE8_MODULES)
+def test_spatial_and_tooling_modules_name_their_jax_counterpart(
+        name, counterpart):
+    """Each module of the spatial, mesh and tooling slice documents which
+    JAX module it ports, and imports neither jax nor the JAX package (nor
+    flax), at module level or inside a function."""
+    path = os.path.join(ROOT, "advmix_tpu_torch", *name.split(".")) + ".py"
+    src = open(path).read()
+    assert counterpart in src.split('"""')[1]
+    for line in src.splitlines():
+        assert not line.strip().startswith((
+            "import jax", "from jax", "import flax", "from flax",
+            "from advmix_tpu ", "from advmix_tpu.", "import advmix_tpu ",
+            "import advmix_tpu.")), line
+
+
+@pytest.mark.parametrize("tool,args", [
+    ("profile", ["--cfg", W32, "--advmix", "--sample_times", "3"]),
+    ("hbm_peak", []),
+    ("parity_check", ["--cfg", W32, "--ckpt", "w.pth"]),
+])
+def test_tooling_entry_points_without_card_raise(tmp_path, tool, args):
+    proc = subprocess.run(
+        [sys.executable, "-m", f"advmix_tpu_torch.tools.{tool}", *args],
+        cwd=str(tmp_path), env=NO_CARD, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr
+    assert not os.listdir(tmp_path)

@@ -141,11 +141,13 @@ def random_corruption_draws(seed: int):
     return pdist.gather_to_main((branches, out.numpy()))
 
 
-def collectives() -> dict:
+def collectives(group=None) -> dict:
     """The parallel layer's collectives on rank-dependent values, gathered
     on rank 0: a mean over two dtypes, BN statistics, a broadcast module,
-    the cross-replica mean's gradient."""
-    r, group = pdist.rank(), pdist.data_group()
+    the cross-replica mean's gradient. `group`: a group or a mesh (default
+    the data group)."""
+    r = pdist.rank()
+    group = pdist.data_group() if group is None else group
     a = torch.full((3,), float(r + 1))
     b = torch.arange(4, dtype=torch.float64) * (r + 1)
     pdist.all_reduce_mean_([a, b], group)
@@ -172,3 +174,132 @@ def fail_on_rank(bad: int) -> None:
     if pdist.rank() == bad:
         raise ValueError(f"planted failure on rank {bad}")
     pdist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# meshes: a ("dcn", "data") mesh for the steps, a ("data", "model") mesh for
+# the spatial forward (tests/test_torch_mesh.py, tests/test_torch_spatial.py)
+# ---------------------------------------------------------------------------
+
+def _mesh_layout(mesh) -> dict:
+    """Each axis's group as global ranks, as this rank sees it."""
+    import torch.distributed as dist
+
+    return {axis: dist.get_process_group_ranks(mesh.get_group(axis))
+            for axis in mesh.mesh_dim_names}
+
+
+def mesh_step_cases(cases: dict, num_slices: int) -> dict:
+    """Every case of `cases` on this rank's rows of its batches, once over
+    the flat group and once over a ("dcn", "data") mesh of `num_slices`
+    slices, with the mesh's layout and the collectives' results on it."""
+    dev = pdist.device()
+    mesh = pdist.get_mesh(num_slices=num_slices)
+    out = {"layout": pdist.gather_to_main(_mesh_layout(mesh)),
+           "collectives": {"flat": collectives(),
+                           "mesh": collectives(mesh)}}
+    for name, case in cases.items():
+        n = len(next(iter(case["batches"][0].values())))
+        out[name] = {
+            "flat": run_case(case, pdist.data_group(), _my_rows(n), dev),
+            "mesh": run_case(case, mesh, _my_rows(n), dev)}
+        out[name]["mesh"]["ranks_equal"] = _same_on_every_rank(
+            out[name]["mesh"])
+    return out
+
+
+def _drop_one_halo_row(spatial):
+    """A planted fault: the first time this rank fetches rows above its
+    own block, the first of them comes back as zeros."""
+    fetch = spatial._RowShards.fetch
+    done = []
+
+    def faulty(self, x, height, needs):
+        rows = fetch(self, x, height, needs)
+        lo = spatial.row_split(height, self.k, self.j)[0]
+        if not done and needs[self.j][0] < lo and rows.shape[2]:
+            rows = rows.clone()
+            rows[:, :, 0] = 0
+            done.append(True)
+        return rows
+
+    spatial._RowShards.fetch = faulty
+    return fetch
+
+
+def spatial_forwards(case: dict) -> dict:
+    """The case's model on this rank's block of its batch through the
+    spatial forward on a ("data", "model") mesh of `model_parallel`, in
+    f32 and float64, beside the unsharded forward of the whole batch (this
+    rank's data rows of it); gathered on rank 0 in rank order. With
+    `mutation`, each spatial forward leaves out one halo row."""
+    from advmix_tpu_torch.parallel import spatial
+
+    mesh = pdist.get_mesh(model_parallel=case["model_parallel"])
+    out = {"layout": _mesh_layout(mesh),
+           "data_index": mesh.get_local_rank("data")}
+    rows = spatial.shard_slices(case["x"].shape, (
+        mesh.get_local_rank("data"), mesh.size(0)), (0, 1))[0]
+    for dtype in ("float32", "float64"):
+        model = port_d(case["cfg"], case["flat"],
+                       getattr(torch, dtype)).eval()
+        x = torch.from_numpy(case["x"]).to(getattr(torch, dtype))
+        xs = spatial.spatial_shard(x, mesh)
+        fn = spatial.make_spatial_forward(model, mesh)
+        planted = (_drop_one_halo_row(spatial) if case.get("mutation")
+                   else None)
+        try:
+            got = fn(xs)
+        finally:
+            if planted is not None:
+                spatial._RowShards.fetch = planted
+        with torch.no_grad():
+            want = model(x)
+        got = [got] if isinstance(got, torch.Tensor) else got
+        want = [want] if isinstance(want, torch.Tensor) else want
+        out[dtype] = {"got": [g.numpy() for g in got],
+                      "want": [w[rows].numpy() for w in want]}
+        out["shard"] = tuple(xs.shape)
+        out["exchanges"] = fn.stats["exchanges"]
+    return pdist.gather_to_main(out)
+
+
+class _AvgPoolNet(torch.nn.Module):
+    """A convolution, then an op the spatial forward does not know."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(3, 4, 3, padding=1)
+
+    def forward(self, x):
+        return torch.nn.functional.avg_pool2d(self.conv(x), 2)
+
+
+def spatial_refusals() -> dict:
+    """What the spatial forward raises on a model with an op outside its
+    allowlist, and for a model in training mode, on every rank."""
+    from advmix_tpu_torch.parallel import spatial
+
+    mesh = pdist.get_mesh(model_parallel=pdist.world())
+    x = spatial.spatial_shard(torch.randn(2, 3, 16, 16), mesh)
+    msgs = {}
+    try:
+        spatial.make_spatial_forward(_AvgPoolNet().eval(), mesh)(x)
+    except NotImplementedError as e:
+        msgs["avg_pool2d"] = str(e)
+    try:
+        net = torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3, padding=1),
+                                  torch.nn.BatchNorm2d(4)).train()
+        spatial.make_spatial_forward(net, mesh)(x)
+    except NotImplementedError as e:
+        msgs["train_bn"] = str(e)
+    return pdist.gather_to_main(msgs)
+
+
+def spatial_cases(cases: dict) -> dict:
+    """`spatial_forwards` of every case, by name."""
+    return {name: spatial_forwards(case) for name, case in cases.items()}
+
+
+def spatial_case_and_refusals(case: dict) -> dict:
+    return {"forward": spatial_forwards(case), "refusals": spatial_refusals()}
