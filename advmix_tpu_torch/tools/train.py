@@ -91,6 +91,10 @@ def main(argv=None, build_dataset=default_build_dataset):
                 f"{dtype_name}")
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = bool(cfg.CUDNN.BENCHMARK)
+        # an f32 config's convolutions run in TF32 unless this is off
+        logger.info(f"=> TF32: cuDNN convolutions "
+                    f"{torch.backends.cudnn.allow_tf32}, matmuls "
+                    f"{torch.backends.cuda.matmul.allow_tf32}")
     if dtype_name != cfg.TRAIN.DTYPE:
         cfg.defrost()
         cfg.TRAIN.DTYPE = dtype_name  # the preprocessor reads it

@@ -81,8 +81,8 @@ Phases, each fatal on failure:
    AdvMix step on the card against the CPU; `tools/train.main --advmix
    --sample_times 3` (3 iterations of batch 12) and a plain epoch of 2;
    the AdvMix iteration timed and profiled at batch 12 and `tools.bench`;
-   `tools/test_corruption.main --on_the_fly` with zoom_blur and
-   defocus_blur over one batch of 8 (11 passes). The three kernels launch
+   `tools/test_corruption.main --on_the_fly` with zoom_blur over one
+   batch of 8 (6 passes). The three kernels launch
    0 times on every bottom-up path, and the phase checks that;
 13. int8 and serving (`ops/quant.py`, `tools/export.py`, `tools/serve.py`,
    `tools/serving_bench.py`), the W32 YAML at batch 128 bf16: the int8
@@ -133,12 +133,28 @@ Phases, each fatal on failure:
    bandwidth as its roofline, and `tools/parity_check` on phase 4's val
    set with phase 4's weights and an `--expect_ap` it must beat (exit 0;
    decode and the batched OKS launched);
-17. print a `kernels` JSON line and, last, the device JSON line.
+17. (beside phases 14 and 15, on the last card) the scripts layer
+   (`advmix_tpu_torch/scripts/`): `advmix_demo.sh`
+   through bash at 2 epochs per arm on the card (the standard arm, the
+   AdvMix fine-tune with it as teacher, the equal-budget control, and each
+   state file's on-the-fly sweep of the clean pass and gaussian_noise's 5
+   severities, PoseResNet-18 64x64 on the synthetic marker set, PCK;
+   CUDNN.BENCHMARK off: each of the scripts' 10 Python processes would
+   spend ~7 s autotuning), and `int8_teacher_ab.sh` in its work
+   directory, started once the demo has saved its standard arm and run
+   beside the demo's other arms (the f32 and the int8-teacher arm from the
+   reused standard arm, both swept): exit 0, the five state files load into the demo's
+   model, every sweep's passes, both summaries; the decode kernel's
+   launches in the scripts' processes, counted by their wrappers and
+   written at each process's exit by a `sitecustomize` hook, equal to one
+   per val batch of every epoch and sweep pass. Phases 14 and 15 are
+   timed under its load: their timing lines say so;
+18. print a `kernels` JSON line and, last, the device JSON line.
 
-The entry-point calls of phases 5-13 and 16 pass `--num_devices 1` (the
+The entry-point calls of phases 5-13, 16 and 17 pass `--num_devices 1` (the
 tools' default, 0, takes every card): on a machine of several cards they
-run on cuda:0 as on a machine of one, and only phases 14 and 15 run
-several ranks.
+run on cuda:0 as on a machine of one (phase 17 on the last card), and only
+phases 14 and 15 run several ranks.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -1819,11 +1835,14 @@ OCHUMAN_CFG = os.path.join(
 # 12; val1 is what the training runs validate on (three steps move D's BN
 # statistics off the heads' calibration, and the maps then hold 120-230
 # groups per image, 6-10 s of host grouping each); val8 the sweep's batch
+# (the YAML's TEST.BATCH_SIZE_PER_GPU)
 BU_SETS = {"val2017": 16, "train2017": 36, "train24": 24, "val1": 1,
            "val8": 8}
 BU_PEAKS_PER_MAP = 4  # the heads' calibration: peaks above 0.1 per map
 BU_TAG_SPREAD = 0.1
-BU_SWEEP = ("zoom_blur", "defocus_blur")
+# one corruption over the batch of 8: the host grouping of a pass took
+# 2.5-5.5 s
+BU_SWEEP = ("zoom_blur",)
 BU_CHECK_SIZE = 256  # the float64 checks card vs CPU: input side
 
 
@@ -2379,8 +2398,8 @@ def bottomup_train_paths(dev, tmp: str, root: str, start_path: str,
 
 def bottomup_sweep_path(dev, tmp: str, root: str, start_path: str,
                         kernel_fns) -> dict:
-    """12d: `tools/test_corruption.main --on_the_fly` over one batch of 8
-    images: clean + BU_SWEEP x 5 severities. Returns the launches (0)."""
+    """12d: `tools/test_corruption.main --on_the_fly` over one batch of 8:
+    clean + BU_SWEEP x 5 severities. Returns the launches (0)."""
     import csv
 
     argv = ["--cfg", HIGHER_CFG, "--on_the_fly", "--device", str(dev),
@@ -2400,7 +2419,7 @@ def bottomup_sweep_path(dev, tmp: str, root: str, start_path: str,
         raise AssertionError(f"a kernel launched on the sweep {sw['launches']}")
     log(f"[bottomup] tools/test_corruption.main --on_the_fly --distortions "
         f"{','.join(BU_SWEEP)}: {n_pass} passes over {BU_SETS['val8']} "
-        f"images (one batch) in {sw['wall']:.2f} s; CSV clean_mAP "
+        f"images in {sw['wall']:.2f} s; CSV clean_mAP "
         f"{row['clean_mAP']} mean_corrupted_mAP {row['mean_corrupted_mAP']} "
         f"rAP {row['rAP']} (seeded weights); launches {sw['launches']}")
     log_sweep_times("bottomup", sw)
@@ -2987,6 +3006,11 @@ def int8_serving_phase(dev, tmp: str, start_path: str, dataset_cls,
 DIST_TRAIN_IMAGES = 48  # of 4 people: TRAIN_ITERS global batches of 2 x 32
 DIST_F64_BATCH = 4      # the float64 check's global batch, 2 rows per rank
 DIST_TIME_ITERS = 5
+# phases 14 and 15 run beside phase 17 (`main`), whose 10 Python processes
+# share this host's threads and, on one card, cuda:0: their times carry
+# this note, and are comparable only with times taken under the same load
+TIMED_BESIDE = (" [timed beside phase 17's scripts: not comparable with a "
+                "run of this phase alone]")
 
 
 def build_synthetic(cfg, is_train, image_set=None):
@@ -3346,7 +3370,7 @@ def multi_rank_phase(dev, tmp: str, start_path: str) -> dict:
         f"{t['d_allreduce_ms']:.3f} ms, of G's {t['g_bytes'] / 1e6:.1f} MB "
         f"in {t['g_allreduce_ms']:.3f} ms"
         + (" (both ranks on one card: a record, not a scaling figure)"
-           if devices[0] == devices[1] else ""))
+           if devices[0] == devices[1] else "") + TIMED_BESIDE)
     for net in ("d", "g"):
         if f"{net}_trace" in t:
             tr = t[f"{net}_trace"]
@@ -3354,9 +3378,9 @@ def multi_rank_phase(dev, tmp: str, start_path: str) -> dict:
                 f"gradients on rank 0: NCCL kernels {tr['nccl'][0]:.1f} us "
                 f"in {tr['nccl'][1]} launches, the other device work (cat, "
                 f"copies back, division) {tr['other'][0]:.1f} us in "
-                f"{tr['other'][1]} launches")
+                f"{tr['other'][1]} launches{TIMED_BESIDE}")
     log(f"[dist] phase 14: {time.perf_counter() - t_phase:.1f} s (ranks "
-        f"{wall:.1f} s)")
+        f"{wall:.1f} s){TIMED_BESIDE}")
     return {k: per_rank[0][k] + per_rank[1][k] for k in per_rank[0]}
 
 
@@ -3553,7 +3577,7 @@ def spatial_phase(dev, tmp: str, start_path: str, batch: dict,
         f"batch) {h['one_rank_ms']:.3f} ms, model_parallel 2 "
         f"{h['spatial_ms']:.3f} ms per batch of {SPATIAL_BATCH}; "
         f"{h['exchanges']} exchanges per forward, {h['halo_mb']:.2f} MB of "
-        f"buffers, {h['halo_ms']:.3f} ms when replayed alone")
+        f"buffers, {h['halo_ms']:.3f} ms when replayed alone{TIMED_BESIDE}")
     per_rank = []
     for r in range(2):
         with open(os.path.join(tmp, f"spatial_launches_{r}.json")) as f:
@@ -3564,7 +3588,8 @@ def spatial_phase(dev, tmp: str, start_path: str, batch: dict,
         f"launches per rank {per_rank}")
     if not all(p["decode_heatmaps"] >= 1 for p in per_rank):
         raise AssertionError(f"decode did not launch on a rank: {per_rank}")
-    log(f"[spatial] phase 15: {time.perf_counter() - t_phase:.1f} s")
+    log(f"[spatial] phase 15: {time.perf_counter() - t_phase:.1f} s"
+        f"{TIMED_BESIDE}")
     return {k: per_rank[0][k] + per_rank[1][k] for k in per_rank[0]}
 
 
@@ -3661,6 +3686,215 @@ def tooling_phase(dev, tmp: str, start_path: str, ap4: float,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the scripts layer, the AdvMix demo and the int8-teacher A/B
+# ---------------------------------------------------------------------------
+
+SCRIPTS = os.path.join(HERE, "advmix_tpu_torch", "scripts")
+DEMO_CFG = os.path.join(HERE,
+                        "experiments/synthetic/res18_64x64_robust_demo.yaml")
+# the depth of the smoke's demo: every one of its 10 Python processes
+# spends ~20 s before its work on the card's host (torch's import, CUDA
+# set-up, ~7 s of that cuDNN autotuning), while one epoch takes ~1.5 s and
+# one sweep pass ~0.1 s; the full demo is a run of its own (PERF.md)
+DEMO_EPOCHS = 2
+DEMO_DISTORTIONS = "gaussian_noise"  # "": the 15, 76 passes per sweep
+DEMO_OPTS = "CUDNN.BENCHMARK False"
+DEMO_VAL_BATCHES = 256 // 32  # the YAML's SYNTH_LENGTH over its batch
+# the arms each script trains and sweeps, each to a state file; the A/B
+# reuses the demo's standard arm
+SCRIPT_ARMS = {"advmix_demo.sh": ("standard", "advmix", "standard400"),
+               "int8_teacher_ab.sh": ("f32", "int8")}
+# The scripts' Python processes count their kernels' launches in the
+# wrappers, as this process does: this `sitecustomize`, first on their
+# PYTHONPATH, appends each process's counts to a file at its exit.
+COUNT_HOOK = """
+import atexit, json, os, sys
+
+
+def _write_counts():
+    mods = [sys.modules.get("advmix_tpu_torch.ops.cuda." + m)
+            for m in ("decode_kernel", "oks_kernel")]
+    if mods[0] is None:
+        return
+    counts = {"decode_heatmaps": mods[0].decode_heatmaps.launches,
+              "oks_matrix_batched": 0, "oks_matrix": 0}
+    if mods[1] is not None:
+        counts.update(oks_matrix_batched=mods[1].oks_matrix_batched.launches,
+                      oks_matrix=mods[1].oks_matrix.launches)
+    with open(os.environ["ADVMIX_LAUNCH_COUNTS"], "a") as f:
+        f.write(json.dumps(counts) + "\\n")
+
+
+atexit.register(_write_counts)
+"""
+
+
+class Script:
+    """`bash advmix_tpu_torch/scripts/<name> <work>` started in the
+    background, its standard output read line by line (each logged but for
+    the sweeps' "=> wrote" lines), its errors to a file, killed with its
+    processes after `timeout` s."""
+
+    def __init__(self, name: str, work: str, env: dict, root: str,
+                 timeout: float = 600):
+        import threading
+
+        self.name, self.t0, self.lines = name, time.perf_counter(), []
+        self.err = os.path.join(root, name + ".err")
+        with open(self.err, "w") as err:
+            # a session of its own: a kill reaches the entry points too
+            self.proc = subprocess.Popen(
+                ["bash", os.path.join(SCRIPTS, name), work], cwd=HERE,
+                env=env, stdout=subprocess.PIPE, stderr=err, text=True,
+                start_new_session=True)
+        self.timer = threading.Timer(timeout, self.kill)
+        self.timer.daemon = True
+        self.timer.start()
+        atexit.register(self.kill)  # a smoke that fails leaves none running
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, 9)
+
+    def read_until(self, prefix: str | None = None) -> list:
+        """Log and keep its lines up to the first that starts with
+        `prefix`, or to its end."""
+        for line in self.proc.stdout:
+            line = line.rstrip("\n")
+            self.lines.append(line)
+            if line and not line.startswith("=> wrote"):
+                log(f"[scripts]   {line}")
+            if prefix is not None and line.startswith(prefix):
+                return self.lines
+        if prefix is not None:
+            self.wait()
+            raise AssertionError(f"{self.name} ended before '{prefix}'")
+        return self.lines
+
+    def wait(self) -> list:
+        """Read to its end; fail on a non-zero exit."""
+        self.read_until()
+        rc = self.proc.wait()
+        self.timer.cancel()
+        if rc:
+            with open(self.err) as f:
+                raise AssertionError(f"{self.name} exit {rc}:\n"
+                                     f"{f.read()[-3000:]}")
+        log(f"[scripts] {self.name}: exit 0 in "
+            f"{time.perf_counter() - self.t0:.1f} s")
+        return self.lines
+
+
+class Beside:
+    """fn(*args) in a daemon thread, beside the phases that follow;
+    `result()` waits for it and returns its value or raises its error."""
+
+    def __init__(self, fn, *args):
+        import threading
+
+        self.out: dict = {}
+
+        def run():
+            try:
+                self.out["value"] = fn(*args)
+            except BaseException as e:  # handed to result()
+                self.out["error"] = e
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def result(self):
+        self.thread.join()
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out["value"]
+
+
+def scripts_phase(dev, tmp: str) -> dict:
+    """Phase 17: `advmix_tpu_torch/scripts/advmix_demo.sh`, then
+    `int8_teacher_ab.sh` in its work directory, through bash, at
+    DEMO_EPOCHS epochs per arm and sweeps of DEMO_DISTORTIONS. The A/B
+    starts once the demo has saved its standard arm, whose state it
+    reuses, and runs beside the demo's other arms with an OUTPUT_DIR of
+    its own (the scripts' runs would overwrite each other's final_state
+    and sweep files). Returns the kernels' launches in the scripts'
+    processes."""
+    from advmix_tpu_torch.config import load_config
+    from advmix_tpu_torch.models import get_pose_net, load_model_file
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "scripts")
+    hook = os.path.join(root, "hook")
+    os.makedirs(hook)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(COUNT_HOOK)
+    counts_file = os.path.join(root, "launches.jsonl")
+    env = dict(os.environ, PYTHON=sys.executable,
+               PYTHONPATH=os.pathsep.join([hook, HERE]),
+               ADVMIX_LAUNCH_COUNTS=counts_file, EPOCHS=str(DEMO_EPOCHS),
+               DISTORTIONS=DEMO_DISTORTIONS, AB_EXTRA_OPTS=DEMO_OPTS,
+               DEVICE=str(dev))
+    work = os.path.join(root, "work")
+    demo_run = Script("advmix_demo.sh", work, dict(
+        env, OUTPUT_DIR=os.path.join(root, "out"),
+        LOG_DIR=os.path.join(root, "log")), root)
+    demo_run.read_until("=== standard: trained in")
+    ab_run = Script("int8_teacher_ab.sh", work, dict(
+        env, OUTPUT_DIR=os.path.join(root, "out_ab"),
+        LOG_DIR=os.path.join(root, "log_ab")), root)
+    out = {"advmix_demo.sh": demo_run.wait(),
+           "int8_teacher_ab.sh": ab_run.wait()}
+
+    demo = out["advmix_demo.sh"]
+    head = demo.index("=== AdvMix robustness demo summary ===")
+    rows = {ln.split()[0]: [float(kv.split("=")[1]) for kv in ln.split()[1:]]
+            for ln in demo[head + 1:head + 4]}
+    if list(rows) != ["standard", "standard400", "advmix"] or not all(
+            0.0 <= c <= 1.0 and 0.0 <= m <= 1.0 and np.isfinite(r)
+            for c, m, r in rows.values()):
+        raise AssertionError(f"the demo's summary: {demo[head:]}")
+    if not demo[head + 4].startswith("rPC delta (advmix - standard400): "):
+        raise AssertionError(f"the demo's summary: {demo[head:]}")
+    ab = out["int8_teacher_ab.sh"]
+    if any("[1/5]" in ln for ln in ab):
+        raise AssertionError("the A/B trained its own standard arm")
+    delta = ab[-1].split()
+    if ab[-4].split() != ["arm", "clean", "mPC", "rPC"] or \
+            delta[:2] != ["delta", "(B-A)"] or len(delta) != 5:
+        raise AssertionError(f"the A/B's summary: {ab[-4:]}")
+
+    n_types = len(DEMO_DISTORTIONS.split(",")) if DEMO_DISTORTIONS else 15
+    n_pass = 1 + 5 * n_types
+    model = get_pose_net(load_config(DEMO_CFG))
+    tags = [t for arms in SCRIPT_ARMS.values() for t in arms]
+    for tag in tags:
+        load_model_file(model, os.path.join(work, f"{tag}_state"))
+        with open(os.path.join(work, f"robust_{tag}.val")) as f:
+            n = sum(1 for ln in f if ln.strip())
+        if n != n_pass:
+            raise AssertionError(f"robust_{tag}.val has {n} passes, not "
+                                 f"{n_pass}")
+    log(f"[scripts] {len(tags)} state files load into the demo's model; "
+        f"{len(tags)} sweeps of {n_pass} passes")
+
+    with open(counts_file) as f:
+        procs = [json.loads(ln) for ln in f]
+    launches = {k: sum(p[k] for p in procs)
+                for k in ("decode_heatmaps", "oks_matrix_batched",
+                          "oks_matrix")}
+    # each arm validates after every epoch, each sweep pass once, on every
+    # val batch; PCK has no OKS
+    want = DEMO_VAL_BATCHES * len(tags) * (DEMO_EPOCHS + n_pass)
+    log(f"[scripts] launches in the scripts' {len(procs)} Python processes "
+        f"{launches} (decode expected {want})")
+    if launches != {"decode_heatmaps": want, "oks_matrix_batched": 0,
+                    "oks_matrix": 0}:
+        raise AssertionError(f"launches {launches}, decode expected {want}")
+    log(f"[scripts] phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def card_matches_cpu(name: str, model, dev, image_size) -> None:
     """The model on the card against the same model on the CPU on one
     seeded random image, leaving it f32 on the card. In float64 the two
@@ -3750,6 +3984,7 @@ def synthetic_coco_class():
 def main(argv=()) -> None:
     if argv:
         raise SystemExit(f"chip_smoke.py takes no arguments, not {argv}")
+    t_start = time.perf_counter()
     # ---- 1. card ----------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -3783,6 +4018,7 @@ def main(argv=()) -> None:
     log("[card] host NMS scans: " + ("C++ (g++)" if get_lib() is not None
                                      else "Python loop (no g++)"))
 
+    log(f"[time] phase 2 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 2. build ---------------------------------------------------------
     res = kbuild.build(force=True)
     log(f"[build] nvcc sm_90a, {len(kbuild._sources())} sources in "
@@ -3795,6 +4031,7 @@ def main(argv=()) -> None:
     rng = np.random.RandomState(SEED)
     flush = Flush(torch.zeros(128 << 20, dtype=torch.uint8, device=dev))
 
+    log(f"[time] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 3. kernels vs plain versions ------------------------------------
     yardsticks(dev, flush)
     report = {"decode_heatmaps": decode_phase(dev, rng, flush)}
@@ -3807,6 +4044,7 @@ def main(argv=()) -> None:
                             1 << (max(counts) - 1).bit_length(), n_big))
     oks_route_timing(dev, np.random.RandomState(SEED + 3))
 
+    log(f"[time] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 4. the full path at full width ----------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     got_counts = write_coco_val(tmp, np.random.RandomState(SEED + 1),
@@ -3912,6 +4150,7 @@ def main(argv=()) -> None:
     # phase 13's exports trace on the host while phases 5-12 run
     export_jobs = start_exports(dev, tmp, start_path, batch["image"])
 
+    log(f"[time] phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 5. AdvMix training through the train entry point -----------------
     del model, eval_step, batch, heat
     torch.cuda.empty_cache()
@@ -3920,50 +4159,72 @@ def main(argv=()) -> None:
     paths["train"] = train_phase(dev, tmp, start_path, SyntheticCropCOCO,
                                  kernel_fns)
 
+    log(f"[time] phase 6 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 6. corruptions -----------------------------------------------------
     corruption_phase(dev)
 
+    log(f"[time] phase 7 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 7. the robustness sweep through its entry point ------------------
     paths["sweep"] = sweep_phase(dev, tmp, start_path, SyntheticCropCOCO,
                                  kernel_fns)
 
+    log(f"[time] phase 8 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 8. --random_corruption training ----------------------------------
     paths["train_random_corruption"] = random_corruption_train_phase(
         dev, tmp, start_path, SyntheticCropCOCO, kernel_fns)
 
+    log(f"[time] phase 9 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 9. the other COCO families --------------------------------------
     paths["families"] = families_phase(dev, tmp, SyntheticCropCOCO,
                                        kernel_fns)
 
+    log(f"[time] phase 10 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 10. MPII: training, PCKh, the MPII-C sweep, decode at 16x64x64 ---
     mpii = mpii_phase(dev, tmp, kernel_fns, rng, flush)
     paths["mpii_train"], paths["mpii_sweep"] = mpii["train"], mpii["sweep"]
     report["decode_heatmaps"]["mpii_shape"] = mpii["decode"]
 
+    log(f"[time] phase 11 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 11. TEST.SOFT_ARGMAX ---------------------------------------------
     paths["soft_argmax"] = soft_argmax_phase(
         dev, tmp, start_path, SyntheticCropCOCO, kernel_fns)["launches"]
 
+    log(f"[time] phase 12 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 12. bottom-up HigherHRNet-W32 512x512 ----------------------------
     paths.update(bottomup_phase(dev, tmp, kernel_fns))
 
+    log(f"[time] phase 13 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 13. int8 W8A8 eval, the int8 teacher, export and serving ---------
     paths.update(int8_serving_phase(dev, tmp, start_path, SyntheticCropCOCO,
                                     kernel_fns, flush,
                                     first_batch(loader, prep, dev),
                                     export_jobs))
 
+    log(f"[time] phase 17 starts at {time.perf_counter() - t_start:.1f} s")
+    # ---- 17, beside 14 and 15: the scripts, the demo and the A/B ----------
+    # processes of their own, ~20 s each before their work on this host,
+    # on the last card (on one card beside the two ranks' gloo records)
+    scripts = Beside(scripts_phase, torch.device(
+        "cuda", torch.cuda.device_count() - 1), tmp)
+
+    log(f"[time] phase 14 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 14. data parallelism on two ranks ------------------------------
     paths["multi_rank"] = multi_rank_phase(dev, tmp, start_path)
 
+    log(f"[time] phase 15 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 15. one image's rows over two ranks ------------------------------
     paths["spatial"] = spatial_phase(dev, tmp, start_path,
                                      first_batch(loader, prep, dev),
                                      dataset.flip_pairs)
 
+    paths["scripts"] = scripts.result()
+    log(f"[time] phase 17 joined at {time.perf_counter() - t_start:.1f} s")
+
+    log(f"[time] phase 16 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 16. the tools ------------------------------------------------------
     paths["parity"] = tooling_phase(dev, tmp, start_path, ap, kernel_fns)
 
+    log(f"[time] phases 1-17: {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for k in ("decode_heatmaps", "oks_matrix_batched", "oks_matrix"):
         r = dict(report[k])

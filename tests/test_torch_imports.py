@@ -281,3 +281,52 @@ def test_tooling_entry_points_without_card_raise(tmp_path, tool, args):
     assert proc.returncode != 0
     assert "no CUDA device is available" in proc.stderr
     assert not os.listdir(tmp_path)
+
+
+SCRIPTS = os.path.join(ROOT, "advmix_tpu_torch", "scripts")
+
+
+def _code_lines(path: str) -> list:
+    """The lines of a script that are neither comments nor a Python
+    module's docstring."""
+    src = open(path).read()
+    if path.endswith(".py"):
+        import ast
+
+        doc = ast.get_docstring(ast.parse(src), clean=False)
+        src = src.replace(f'"""{doc}"""', "", 1) if doc else src
+    return [ln for ln in src.splitlines()
+            if ln.strip() and not ln.strip().startswith("#")]
+
+
+@pytest.mark.parametrize("name", sorted(os.listdir(SCRIPTS)))
+def test_scripts_call_only_the_port(name):
+    """No file of the port's shell surface calls the JAX package's
+    `tools/*.py` or `scripts/*`, names `advmix_tpu`, imports jax or edits
+    sys.path; the shell scripts run Python only as `python -m
+    advmix_tpu_torch.tools.<tool>`, `-m advmix_tpu_torch.scripts.
+    demo_summary` or a here-document, whose imports are the port's."""
+    import re
+
+    path = os.path.join(SCRIPTS, name)
+    if os.path.isdir(path):  # __pycache__
+        return
+    assert name.endswith((".sh", ".py")), name
+    lines = _code_lines(path)
+    for line in lines:
+        assert not re.search(r"(?<![\w/])(tools|scripts)/", line), line
+        assert not re.search(r"\badvmix_tpu\b(?!_torch)", line), line
+        assert not re.search(r"\b(import|from) (jax|flax|orbax)\b", line), \
+            line
+        assert "sys.path" not in line, line
+    if name.endswith(".sh"):
+        text = "\n".join(lines)
+        calls = re.findall(r'"(?:\$PY|\$\{PYTHON:-python\})"\s+(-m\s+\S+|-)\s',
+                           text)
+        assert len(calls) == len(
+            re.findall(r'"(?:\$PY|\$\{PYTHON:-python\})"', text))
+        for call in calls:
+            assert call == "-" or re.fullmatch(
+                r"-m\s+advmix_tpu_torch\.(tools\.\w+|scripts\.demo_summary)",
+                call), call
+        assert "python " not in text.replace("${PYTHON:-python}", "")

@@ -16,6 +16,14 @@ is held to the JAX package's as well. Then the port's renderer (`tools/make_data
 tree of contrast and glass_blur, and the sweep without --on_the_fly reads
 it: every pass's AP must equal the JAX package's `validate` on the same
 files.
+
+The robust demo's own config (PoseResNet-18 64x64 on the synthetic marker
+set, PCK; `advmix_tpu_torch/scripts/advmix_demo.sh` sweeps it) on 32
+samples, clean + contrast at severities 1..5, on the same weights through
+an `.npz`: every pass's PCK must equal the JAX package's, each pass's
+predictions within 1e-3 px of its, and the CSV must equal the JAX
+`write_final_csv`'s byte for byte, which ties the demo's mPC and rPC to the
+JAX package's arithmetic.
 """
 
 import json
@@ -34,14 +42,17 @@ from advmix_tpu.data import Loader as JaxLoader
 from advmix_tpu.data import build_dataset as jax_build_dataset
 from advmix_tpu.engine import steps as jax_steps
 from advmix_tpu.engine import trainer as jax_trainer
+from advmix_tpu.models import get_pose_net as jax_get_pose_net
 from advmix_tpu.ops.augment import IMAGENET_MEAN_STD
 from advmix_tpu.ops.corruptions import corrupt as jax_corrupt
 from advmix_tpu.ops.heatmap import generate_target
 from advmix_tpu.parallel import get_mesh
 from advmix_tpu.parallel.mesh import replicate
 from advmix_tpu_torch.config import load_config
+from advmix_tpu_torch.data import build_dataset
 from advmix_tpu_torch.models import get_pose_net
 from advmix_tpu_torch.tools import make_datasets
+from advmix_tpu_torch.tools import test_corruption as port_sweep
 
 from test_torch_validate import _coco_tree
 from torch_port_util import (TINY_EXTRA, TINY_HEATMAP, TINY_IMAGE,
@@ -49,6 +60,7 @@ from torch_port_util import (TINY_EXTRA, TINY_HEATMAP, TINY_IMAGE,
                              unflatten, variable_shapes)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEMO = os.path.join(ROOT, "experiments/synthetic/res18_64x64_robust_demo.yaml")
 ON_THE_FLY = ["contrast", "glass_blur", "jpeg_compression"]
 PRE_RENDERED = ["contrast", "glass_blur"]
 
@@ -227,3 +239,90 @@ def test_sweep_entry_point_matches_jax(tmp_path, monkeypatch):
     assert [ap for _, ap in got] == [jax_pass(c, s, True)
                                      for c, s in passes]
     same_predictions(out_dir, str(tmp_path / "jax_out"), passes)
+
+
+def recording(dataset, preds: list):
+    """`dataset`, whose evaluate() keeps a copy of the predictions it is
+    given."""
+    evaluate = dataset.evaluate
+
+    def record(cfg, all_preds, *args, **kwargs):
+        preds.append(np.array(all_preds))
+        return evaluate(cfg, all_preds, *args, **kwargs)
+
+    dataset.evaluate = record
+    return dataset
+
+
+def test_demo_config_sweep_matches_jax(tmp_path, monkeypatch):
+    with open(DEMO) as f:
+        cfg_yaml = yaml.safe_load(f)
+    cfg_yaml["OUTPUT_DIR"] = str(tmp_path / "output")
+    cfg_yaml["DATASET"]["SYNTH_LENGTH"] = 32
+    cfg_yaml["TEST"]["MODEL_FILE"] = str(tmp_path / "w.npz")
+    cfg_path = str(tmp_path / "demo.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg_yaml, f)
+    jcfg = jax_load_config(cfg_path)
+    jmodel = jax_get_pose_net(jcfg)
+    calib = np.random.RandomState(40).randn(4, 64, 64, 3).astype(np.float32)
+    flat = calibrate_bn(random_variables(variable_shapes(jmodel, (64, 64)),
+                                         seed=41),
+                        get_pose_net(load_config(cfg_path)), calib)
+    np.savez(str(tmp_path / "w.npz"), **flat)
+
+    mesh = get_mesh(1)
+    v = unflatten(flat)
+    params = replicate(v["params"], mesh)
+    stats = replicate(v["batch_stats"], mesh)
+    jax_preds = []
+    clean_ds = recording(jax_build_dataset(jcfg, is_train=False), jax_preds)
+    step = jax_steps.make_eval_step(jmodel, jcfg, clean_ds.flip_pairs, mesh)
+    passes = [("clean", 0)] + [("contrast", s) for s in range(5)]
+    jax_pcks = []
+    for corruption, severity0 in passes:
+        cfg = jcfg.clone()
+        cfg.defrost()
+        cfg.TEST.TEST_ROBUST = True
+        cfg.TEST.CORRUPTION_TYPE = corruption
+        cfg.TEST.SEVERITY = severity0
+        cfg.freeze()
+        _, pck = jax_trainer.validate(
+            cfg, step, jax_prep(cfg, corruption, severity0 + 1), params,
+            stats, clean_ds, JaxLoader(clean_ds, 32, shuffle=False), mesh,
+            str(tmp_path / "jax_out"))
+        jax_pcks.append(pck)
+
+    port_preds = []
+    out = port_sweep.main(
+        ["--cfg", cfg_path, "--on_the_fly", "--distortions", "contrast",
+         "--device", "cpu"],
+        build_dataset=lambda cfg, is_train, image_set=None: recording(
+            build_dataset(cfg, is_train, image_set), port_preds))
+    assert [(c, s) for c, s, _, _ in out["runs"]] == passes
+    assert [pck for _, _, _, pck in out["runs"]] == jax_pcks
+    assert [list(nv) for _, _, nv, _ in out["runs"]] == [["PCK"]] * 6
+    assert 0.0 < jax_pcks[0] < 1.0
+    assert len(port_preds) == len(jax_preds) == len(passes)
+    for (corruption, severity0), got, want in zip(passes, port_preds,
+                                                  jax_preds):
+        np.testing.assert_allclose(got[..., :2], want[..., :2], rtol=0,
+                                   atol=1e-3,
+                                   err_msg=f"{corruption}_{severity0}")
+        if corruption != "clean":
+            assert np.abs(want[..., :2] - jax_preds[0][..., :2]).max() > 1.0
+    with open(os.path.join(out["output_dir"], "robust_C.val")) as f:
+        assert [ln.split(":")[0] for ln in f.read().splitlines()] == \
+            [f"{c}_{s}" for c, s in passes]
+
+    want_dir = tmp_path / "jax_csv"
+    want_dir.mkdir()
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cache"))
+    monkeypatch.syspath_prepend(os.path.join(ROOT, "tools"))
+    from test_corruption import write_final_csv as jax_write_final_csv
+
+    jax_write_final_csv(jax_pcks, ["contrast"], str(want_dir), "robust",
+                        "synthetic")
+    with open(out["csv"], "rb") as f, \
+            open(want_dir / "robust.csv", "rb") as g:
+        assert f.read() == g.read()
