@@ -20,12 +20,16 @@ JAX server's protocol, so its clients work unchanged:
 A fixed-batch program (export --batch N) pads a partial batch to its size
 by repeating the last row and slices the result; a batch-polymorphic one
 (--batch 0) runs at the request's size. The device calls run one at a
-time on one thread of the server's own, whatever HTTP thread asked:
-PyTorch keeps cuDNN's convolution plans per thread, so a call from a
-fresh thread would choose (and, with `cudnn.benchmark`, autotune) its
-plans again and could take other algorithms, whose bf16 sums round
-otherwise; `call` runs other work on that thread, to compare with the
-served results bit for bit. It runs on the card unless told
+time on one thread of the server's own, whatever HTTP thread asked, and
+allow only cuDNN's deterministic plans, whatever the process set: with
+`cudnn.benchmark` on (the YAMLs' CUDNN.BENCHMARK, which `tools/export.py`
+applies to its process), autotuning can pick a plan for a transposed
+convolution that sums with atomics, and one request then gets two
+answers. Autotuning stays as the process set it, and picks among the
+deterministic plans. PyTorch keeps cuDNN's plans per thread, so the one
+thread also keeps each batch size's plans from one call to the next.
+`call` runs other work on that thread under the same flag, to compare
+with the served results bit for bit. It runs on the card unless told
 `--device cpu`, and refuses a program exported for another device instead
 of falling back.
 """
@@ -96,8 +100,21 @@ class PoseServer:
 
     def call(self, fn, *args):
         """fn(*args) on the server's device thread, where every predict
-        runs."""
-        return self._device_thread.submit(fn, *args).result()
+        runs, with only cuDNN's deterministic plans allowed."""
+        return self._device_thread.submit(self._deterministic, fn,
+                                          *args).result()
+
+    @staticmethod
+    def _deterministic(fn, *args):
+        # the flag is the process's: set for this call, put back after
+        # (`cudnn.flags()` would also reset the process's benchmark limit
+        # and fp32 precision to their defaults for the call)
+        cudnn = torch.backends.cudnn
+        before, cudnn.deterministic = cudnn.deterministic, True
+        try:
+            return fn(*args)
+        finally:
+            cudnn.deterministic = before
 
     @torch.no_grad()
     def _run(self, x, n):

@@ -28,9 +28,10 @@ Phases, each fatal on failure:
    warp) for one epoch of a few iterations of batch 32 on a synthetic COCO
    train set, with the per-epoch validate() (the three kernels launch
    again), a checkpoint, a final state, and a second call that resumes and
-   trains nothing; the step's invariants asserted on the card; one f32
-   step on the card against the same step on the CPU; the step, the view
-   synthesis and both timed at batch 32 and 128 and profiled;
+   trains nothing; the step's invariants asserted on the card; one float64
+   and one f32 step on the card against the same step on the CPU; the
+   step, the view synthesis and both timed at batch 32 and 128, and
+   profiled at 128 (phase 16's `tools/profile` traces it at 32);
 6. corruptions (advmix_tpu_torch/ops/corruptions.py): every deterministic
    form (the 8 key-free types; the exact-render forms of glass, motion,
    snow, elastic and spatter, spatter's water arm only where cv2 imports)
@@ -60,9 +61,10 @@ Phases, each fatal on failure:
    --sample_times 3 --stylize_image --sp_style 1` with DEBUG.DEBUG and its
    four dumps on, on a synthetic MPII set (annot json, gt_valid.mat, JPEGs)
    and its stylized copy: 3 iterations of batch 32, validate() to PCKh at
-   batch 128, the dump files checked; then the 76-pass MPII-C sweep
-   `tools/test_corruption.main --on_the_fly` over one batch of 128 (decode
-   76 times, OKS never: PCKh has no NMS); the decode kernel at MPII's
+   batch 128, the dump files checked; then the MPII-C sweep
+   `tools/test_corruption.main --on_the_fly` over one batch of 128, the
+   clean pass and 3 corruptions x 5 severities (decode 16 times, OKS
+   never: PCKh has no NMS); the decode kernel at MPII's
    (128, 16, 64, 64) bit-equal to its plain version on both routes, timed
    beside its bound;
 11. TEST.SOFT_ARGMAX: the W32 eval through validate() with the decode
@@ -99,12 +101,17 @@ Phases, each fatal on failure:
    at batch 0 and with --int8 (started in the background after phase 4:
    tracing takes the host a minute or more each), each served by
    `PoseServer` with predictions equal to the eval step's bit for bit and
-   one decode launch per predict, and once over HTTP; the bottom-up YAML
-   exported at batch 8 and served, equal to `bottomup_infer_fn`; and
+   one decode launch per predict, and once over HTTP; the repeat probe of
+   `tools/serve_check` (PoseResNet-18 64x64's transposed convolutions at
+   batch sizes 1..PROBE_BATCHES, twice each, with autotuning on and
+   nondeterministic plans allowed in the process): no two answers
+   through the server's `call`, and the count in a fresh thread reported;
+   the bottom-up YAML exported at batch 8 and served, equal to
+   `bottomup_infer_fn`; and
    `tools/serving_bench` on its bf16, int8 and int8pre arms;
 14. data parallelism on two ranks (`parallel/dist.py`; NCCL on cuda:0 and
    cuda:1 where the machine has two cards, else both ranks on cuda:0 over
-   gloo, after a one-rank NCCL group has all-reduced a buffer there): one
+   gloo, beside a one-rank NCCL group that all-reduces a buffer there): one
    float64 AdvMix step of W32 with TRAIN.CROSS_REPLICA_BN on two ranks
    against one rank on the whole batch (within 1e-9 of the update's range);
    the W32 eval through validate() on phase 4's val set on two ranks,
@@ -129,11 +136,11 @@ Phases, each fatal on failure:
    kernels' launches counted on each rank;
 16. the tools: `tools/hbm_peak` at 512 MiB (GB/s of its two patterns),
    `tools/loader_bench` over 256 COCO-sized JPEGs (both host modes),
-   `tools/profile` over 3 AdvMix W32 steps at batch 32 with the measured
+   `tools/profile` over an AdvMix W32 step at batch 32 with the measured
    bandwidth as its roofline, and `tools/parity_check` on phase 4's val
    set with phase 4's weights and an `--expect_ap` it must beat (exit 0;
    decode and the batched OKS launched);
-17. (beside phases 14 and 15, on the last card) the scripts layer
+17. (beside phases 14-16, on the last card) the scripts layer
    (`advmix_tpu_torch/scripts/`): `advmix_demo.sh`
    through bash at 2 epochs per arm on the card (the standard arm, the
    AdvMix fine-tune with it as teacher, the equal-budget control, and each
@@ -147,8 +154,8 @@ Phases, each fatal on failure:
    model, every sweep's passes, both summaries; the decode kernel's
    launches in the scripts' processes, counted by their wrappers and
    written at each process's exit by a `sitecustomize` hook, equal to one
-   per val batch of every epoch and sweep pass. Phases 14 and 15 are
-   timed under its load: their timing lines say so;
+   per val batch of every epoch and sweep pass. Phases 14-16 are timed
+   under its load: their timing lines say so;
 18. print a `kernels` JSON line and, last, the device JSON line.
 
 The entry-point calls of phases 5-13, 16 and 17 pass `--num_devices 1` (the
@@ -164,6 +171,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -186,6 +194,26 @@ SEED = 0
 
 def log(*a):
     print(*a, flush=True)
+
+
+class Laps:
+    """Wall seconds of a phase's parts on the host clock: `laps(name)` ends
+    a part, `laps.log()` prints them on one `[time]` line."""
+
+    def __init__(self, phase: str):
+        self.phase = phase
+        self.t0 = self.t = time.perf_counter()
+        self.parts = []
+
+    def __call__(self, part: str) -> None:
+        now = time.perf_counter()
+        self.parts.append(f"{part} {now - self.t:.1f} s")
+        self.t = now
+
+    def log(self, note: str = "") -> None:
+        log(f"[time] phase {self.phase}: "
+            f"{time.perf_counter() - self.t0:.1f} s ("
+            + ", ".join(self.parts) + ")" + note)
 
 
 class Flush:
@@ -272,13 +300,18 @@ def profiled(fn, steps: int = 3):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
-    for e in prof.events():
+    # the profiler's raw records, their names demangled as `prof.events()`
+    # does: it would first build a tree of every host operator, ~20x slower
+    # for the same kernel times (seconds per window of a W32 step)
+    demangled = functools.lru_cache(None)(torch._C._demangle)
+    for e in prof.profiler.kineto_results.events():
         # device activities only: the optimizer's "Optimizer.step#..." span
         # is an annotation mirrored onto the device's timeline, not a kernel
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and not e.name.startswith("Optimizer."):
-            t, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            name = demangled(e.name())
+            if not name.startswith("Optimizer."):
+                t, n = by_name.get(name, (0.0, 0))
+                by_name[name] = (t + e.duration_ns() / 1e3, n + 1)
     return wall_us, by_name
 
 
@@ -691,6 +724,10 @@ def write_coco(root: str, image_set: str, counts, rng):
 # ---------------------------------------------------------------------------
 
 TRAIN_ITERS = 3
+TIME_ITERS = 5  # timed AdvMix iterations after the warm-ups
+# the card-vs-CPU AdvMix step's batch: the CPU's float64 convolutions are
+# the phase's cost
+CPU_BATCH = 2
 ALPHA, ADV_W = 0.1, 0.7
 
 
@@ -761,7 +798,7 @@ def check_step_on_card(result, cfg, dev, raw_batch) -> None:
 
 
 def step_card_vs_cpu(cfg, start_path: str, dev, dtype: torch.dtype,
-                     batch_size: int = 4) -> dict:
+                     batch_size: int = CPU_BATCH) -> dict:
     """One AdvMix step (SGD, TF32 off) at full width in `dtype` on the card
     and on the CPU, from the same state and the same views. Returns, for D
     and for G, the difference of the parameters after the step over their
@@ -844,6 +881,7 @@ def train_phase(dev, tmp: str, start_path: str, dataset_cls, kernel_fns):
     def build(cfg, is_train, image_set=None):
         return dataset_cls(cfg, is_train, image_set)
 
+    laps = Laps("5")
     for fn in kernel_fns:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -915,6 +953,7 @@ def train_phase(dev, tmp: str, start_path: str, dataset_cls, kernel_fns):
         if not os.path.isfile(os.path.join(result["output_dir"], name)):
             raise AssertionError(f"{name} was not written")
 
+    laps("train, checks")
     t0 = time.perf_counter()
     again = train_tool.main(argv, build_dataset=build)
     if again["begin_epoch"] != 1 or again["history"]:
@@ -938,9 +977,11 @@ def train_phase(dev, tmp: str, start_path: str, dataset_cls, kernel_fns):
                for i in range(32)]
     raw = {k: to_device(np.stack([s[k] for s in samples]), dev)
            for k in ("image", "warp_matrix", "joints", "joints_vis")}
+    laps("resume")
     check_step_on_card(result, cfg, dev, raw)
     del result, state, raw
     torch.cuda.empty_cache()
+    laps("watched step")
 
     # float64 shows that the card runs the same step as the CPU (it agrees
     # to 1e-12). f32 is what training computes, and its gradients are
@@ -953,7 +994,8 @@ def train_phase(dev, tmp: str, start_path: str, dataset_cls, kernel_fns):
     for dtype, lim in limits.items():
         r = step_card_vs_cpu(cfg, start_path, dev, dtype)
         name = str(dtype).replace("torch.", "")
-        log(f"[train] one {name} AdvMix step (SGD, TF32 off, batch 4) on the "
+        log(f"[train] one {name} AdvMix step (SGD, TF32 off, batch "
+            f"{CPU_BATCH}) on the "
             f"card vs the CPU, difference of the parameters after the step "
             f"over their update: D max {r['d']['max']:.3g} (limit "
             f"{lim['d']:g}) 2-norm {r['d']['l2']:.3g}; G max "
@@ -964,11 +1006,14 @@ def train_phase(dev, tmp: str, start_path: str, dataset_cls, kernel_fns):
         if not (r["d"]["max"] < lim["d"] and r["g"]["max"] < lim["g"]):
             raise AssertionError(f"{name} step on the card vs the CPU: {r}")
         torch.cuda.empty_cache()
+        laps(f"{name} card vs CPU")
 
-    # timings, bf16, after warm-up (cuDNN autotunes in the warm-up)
+    # timings, bf16, after warm-up (cuDNN autotunes in the warm-up); the
+    # profile at 128 only: phase 16's tools/profile traces the step at 32
     for batch_size in (32, 128):
-        t = time_advmix_largest_fit(cfg, dev, batch_size, torch.bfloat16,
-                                    iters=10, inspect=profile_by_family)
+        t = time_advmix_largest_fit(
+            cfg, dev, batch_size, torch.bfloat16, iters=TIME_ITERS,
+            inspect=profile_by_family if batch_size == 128 else None)
         note = ("" if t["batch"] == t["asked"] else
                 f" (batch {t['asked']} does not fit in the card's memory; "
                 "the largest power of two that does)")
@@ -980,6 +1025,9 @@ def train_phase(dev, tmp: str, start_path: str, dataset_cls, kernel_fns):
         if not (np.isfinite(t["loss_d"]) and np.isfinite(t["loss_g"])):
             raise AssertionError("the timed step's losses are not finite")
         prof = t["inspect"]
+        laps(f"timing at {batch_size}")
+        if prof is None:
+            continue
         log(f"[train] batch {t['batch']} profile of 2 iterations: wall "
             f"{prof['wall_ms']:.3f} ms/iteration, device busy "
             f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_share']:.1f}%), "
@@ -989,6 +1037,7 @@ def train_phase(dev, tmp: str, start_path: str, dataset_cls, kernel_fns):
         for name, ms, n in prof["top"]:
             log(f"[train]   top: {ms:9.3f} ms/iteration {n:6d} launches  "
                 f"{name}")
+    laps.log()
     return launches
 
 
@@ -1379,6 +1428,7 @@ def families_phase(dev, tmp: str, dataset_cls, kernel_fns) -> dict:
         validate
     from advmix_tpu_torch.models.layers import set_compute_dtype
 
+    laps = Laps("9")
     total = {fn.__name__: 0 for fn in kernel_fns}
     for name, rel in FAMILIES:
         cfg = get_default_config()
@@ -1421,7 +1471,7 @@ def families_phase(dev, tmp: str, dataset_cls, kernel_fns) -> dict:
                 torch.isfinite(preds).all() and torch.isfinite(maxvals).all()):
             raise AssertionError(f"{name}: preds {tuple(preds.shape)} not "
                                  "finite")
-        ms = wall_ms(lambda: eval_step(batch))
+        ms = wall_ms(lambda: eval_step(batch), iters=5)
         prof = profile_by_family(lambda: eval_step(batch), steps=3)
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[families] {name} ({rel}): validate() {wall:.2f} s over "
@@ -1438,6 +1488,8 @@ def families_phase(dev, tmp: str, dataset_cls, kernel_fns) -> dict:
             log_families("families", prof)
         del model, eval_step, batch, preds, maxvals
         torch.cuda.empty_cache()
+        laps(name)
+    laps.log()
     return total
 
 
@@ -1450,6 +1502,9 @@ MPII_JOINTS = ("rank", "rkne", "rhip", "lhip", "lkne", "lank", "pelvis",
                "thorax", "upper neck", "head", "rwri", "relb", "rsho", "lsho",
                "lelb", "lwri")
 MPII_SHAPE = (EVAL_BATCH, 16, 64, 64)
+# the MPII-C sweep: clean + these x 5 severities, 16 passes (phase 7 runs
+# all 76 on COCO)
+MPII_SWEEP = ("gaussian_noise", "motion_blur", "contrast")
 DEBUG_OPTS = ["DEBUG.DEBUG", "True", "DEBUG.SAVE_BATCH_IMAGES_GT", "True",
               "DEBUG.SAVE_BATCH_IMAGES_PRED", "True",
               "DEBUG.SAVE_HEATMAPS_GT", "True",
@@ -1554,17 +1609,20 @@ def mpii_phase(dev, tmp: str, kernel_fns, rng, flush) -> dict:
     on the MPII sweep, and the decode kernel's check and times at MPII's
     shape. The YAML computes in f32: its training, sweep and timings run
     with cuDNN's TF32 on, torch's default, as a user runs them."""
+    laps = Laps("10")
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
     try:
-        out = mpii_paths(dev, tmp, kernel_fns)
+        out = mpii_paths(dev, tmp, kernel_fns, laps)
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     out["decode"] = decode_shape_phase(dev, rng, flush, MPII_SHAPE)
+    laps("decode at MPII's shape")
+    laps.log()
     return out
 
 
-def mpii_paths(dev, tmp: str, kernel_fns) -> dict:
+def mpii_paths(dev, tmp: str, kernel_fns, laps) -> dict:
     import csv
 
     import advmix_tpu_torch.engine.trainer as trainer_mod
@@ -1662,8 +1720,9 @@ def mpii_paths(dev, tmp: str, kernel_fns) -> dict:
         f"{EVAL_BATCH}")
     del result
     torch.cuda.empty_cache()
+    laps("train")
 
-    t = time_advmix(cfg, dev, 32, torch.float32, iters=5,
+    t = time_advmix(cfg, dev, 32, torch.float32, iters=TIME_ITERS,
                     inspect=profile_by_family)
     prof = t["inspect"]
     log(f"[mpii] AdvMix f32 batch 32 at 256x256 (tools/bench.time_advmix, "
@@ -1674,15 +1733,17 @@ def mpii_paths(dev, tmp: str, kernel_fns) -> dict:
         f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_share']:.1f}%), "
         f"{prof['kernels']} kernels per iteration")
     torch.cuda.empty_cache()
+    laps("AdvMix timing")
 
     argv = ["--cfg", MPII_CFG, "--on_the_fly", "--device", str(dev),
-            "--num_devices", "1", "--modelDir",
+            "--num_devices", "1", "--distortions", ",".join(MPII_SWEEP),
+            "--modelDir",
             os.path.join(tmp, "mpii_sweep_out"), "--logDir",
             os.path.join(tmp, "mpii_sweep_log"), "DATASET.ROOT", root,
             "TEST.MODEL_FILE", final_state, "TEST.BATCH_SIZE_PER_GPU",
             str(EVAL_BATCH)]
-    sw = run_sweep(argv, None, kernel_fns)
-    n_pass = 1 + 15 * 5
+    n_pass = 1 + 5 * len(MPII_SWEEP)
+    sw = run_sweep(argv, None, kernel_fns, n_pass=n_pass)
     if sw["launches"] != {"decode_heatmaps": n_pass, "oks_matrix_batched": 0,
                           "oks_matrix": 0}:
         raise AssertionError(f"MPII sweep launches {sw['launches']}")
@@ -1702,6 +1763,7 @@ def mpii_paths(dev, tmp: str, kernel_fns) -> dict:
         f"mean_corrupted_mean {row['mean_corrupted_mean']} rmean "
         f"{row['rmean']} (random weights)")
     log_sweep_times("mpii", sw)
+    laps("sweep")
     return dict(train=train_launches, sweep=sw["launches"])
 
 
@@ -1831,12 +1893,12 @@ HIGHER_CFG = os.path.join(HERE,
                           "experiments/coco/higher_hrnet/w32_512_advmix.yaml")
 OCHUMAN_CFG = os.path.join(
     HERE, "experiments/ochuman/higher_hrnet/w32_512_advmix.yaml")
-# val2017 for validate; train2017 and train24 make 3 and 2 iterations of
-# 12; val1 is what the training runs validate on (three steps move D's BN
-# statistics off the heads' calibration, and the maps then hold 120-230
-# groups per image, 6-10 s of host grouping each); val8 the sweep's batch
-# (the YAML's TEST.BATCH_SIZE_PER_GPU)
-BU_SETS = {"val2017": 16, "train2017": 36, "train24": 24, "val1": 1,
+# val2017 for validate (one batch); train2017 and train24 make 3 and 2
+# iterations of 12; val1 is what the training runs validate on (three
+# steps move D's BN statistics off the heads' calibration, and the maps
+# then hold 120-230 groups per image, 6-10 s of host grouping each); val8
+# the sweep's batch (the YAML's TEST.BATCH_SIZE_PER_GPU)
+BU_SETS = {"val2017": 8, "train2017": 36, "train24": 24, "val1": 1,
            "val8": 8}
 BU_PEAKS_PER_MAP = 4  # the heads' calibration: peaks above 0.1 per map
 BU_TAG_SPREAD = 0.1
@@ -1844,6 +1906,7 @@ BU_TAG_SPREAD = 0.1
 # 2.5-5.5 s
 BU_SWEEP = ("zoom_blur",)
 BU_CHECK_SIZE = 256  # the float64 checks card vs CPU: input side
+BU_CPU_BATCH = 1     # the float64 AdvMix step's batch there
 
 
 def rle_string(mask: np.ndarray) -> str:
@@ -2034,7 +2097,7 @@ def bottomup_infer_card_vs_cpu(model, cfg, image, pairs, dev) -> dict:
 
 
 def bottomup_step_card_vs_cpu(cfg, start_path: str, dev,
-                              batch_size: int = 2) -> dict:
+                              batch_size: int = BU_CPU_BATCH) -> dict:
     """One float64 `make_bottomup_advmix_step` (SGD) at full width and a
     BU_CHECK_SIZE input on the card and on the CPU, from the same state and
     the same views, 10 people per image, a valid mask of blocks. Returns
@@ -2115,6 +2178,7 @@ def bottomup_phase(dev, tmp: str, kernel_fns) -> dict:
             f"{s} ({BU_SETS[s]}, {people[s]})" for s in BU_SETS))
 
     # seeded weights, BN calibrated, heads calibrated
+    laps = Laps("12")
     t0 = time.perf_counter()
     model = random_model(cfg, dev)
     image = bottomup_batch(cfg, dev)
@@ -2145,16 +2209,21 @@ def bottomup_phase(dev, tmp: str, kernel_fns) -> dict:
         f"{heads['tag_std']:.3f}; for [0.5, 1, 2]: {heads_ms['peaks']:.2f}"
         f", {heads_ms['tag_std']:.3f} ({time.perf_counter() - t0:.1f} s)")
 
+    laps("data, weights, calibration")
     out = {"bottomup_eval": bottomup_eval_paths(
         dev, tmp, root, {"[1]": start_path, "[0.5, 1, 2]": start_ms},
         kernel_fns)}
+    laps("validate x 3, eval steps timed")
     bottomup_card_vs_cpu(model_raw, cfg, pairs, dev, start_path)
     del model_raw
     torch.cuda.empty_cache()
+    laps("float64 card vs CPU")
     out["bottomup_train"] = bottomup_train_paths(dev, tmp, root, start_path,
-                                                 kernel_fns)
+                                                 kernel_fns, laps)
     out["bottomup_sweep"] = bottomup_sweep_path(dev, tmp, root, start_path,
                                                 kernel_fns)
+    laps("sweep")
+    laps.log()
     return out
 
 
@@ -2296,7 +2365,8 @@ def bottomup_card_vs_cpu(model, cfg, pairs, dev, start_path: str) -> None:
     r = bottomup_step_card_vs_cpu(cfg, start_path, dev)
     gaps = {k: abs(r["card"][k] - r["cpu"][k]) / max(1.0, abs(r["cpu"][k]))
             for k in ("loss_d", "loss_g")}
-    log(f"[bottomup] float64 AdvMix step, card vs CPU, batch 2 at "
+    log(f"[bottomup] float64 AdvMix step, card vs CPU, batch "
+        f"{BU_CPU_BATCH} at "
         f"{BU_CHECK_SIZE}x{BU_CHECK_SIZE}: loss_d {r['card']['loss_d']:.9f} / "
         f"{r['cpu']['loss_d']:.9f}, loss_g {r['card']['loss_g']:.9f} / "
         f"{r['cpu']['loss_g']:.9f}; parameters after the step, max |diff| "
@@ -2307,7 +2377,7 @@ def bottomup_card_vs_cpu(model, cfg, pairs, dev, start_path: str) -> None:
 
 
 def bottomup_train_paths(dev, tmp: str, root: str, start_path: str,
-                         kernel_fns) -> dict:
+                         kernel_fns, laps) -> dict:
     """12c: `tools/train.main --advmix --sample_times 3` (3 iterations of
     batch 12, validate, checkpoint) and a plain epoch of 2 iterations; the
     AdvMix iteration timed and profiled at batch 12 (`tools/bench`), and
@@ -2364,6 +2434,7 @@ def bottomup_train_paths(dev, tmp: str, root: str, start_path: str,
             f"{result['perf']:.4f}; launches {launches}")
         del result
         torch.cuda.empty_cache()
+        laps(f"train {mode}")
     if any(total.values()):
         raise AssertionError(f"a kernel launched on bottom-up training {total}")
 
@@ -2382,17 +2453,20 @@ def bottomup_train_paths(dev, tmp: str, root: str, start_path: str,
         f"{prof['kernels']} kernels per iteration")
     log_families("bottomup", prof)
     torch.cuda.empty_cache()
+    laps("AdvMix timing")
     import io
 
+    # the CLI around the timing above: one iteration is enough
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):  # its JSON line, into the log
         res = bench_tool.main(["--cfg", HIGHER_CFG, "--batch", "12",
-                               "--iters", "3"])
+                               "--iters", "1"])
     if res["batch"] != 12 or not np.isfinite(res["loss_d"]):
         raise AssertionError(f"tools.bench bottom-up: {res}")
     log(f"[bottomup] tools.bench --cfg {os.path.relpath(HIGHER_CFG, HERE)} "
-        f"--batch 12 --iters 3 printed: {printed.getvalue().strip()}")
+        f"--batch 12 --iters 1 printed: {printed.getvalue().strip()}")
     torch.cuda.empty_cache()
+    laps("tools.bench")
     return total
 
 
@@ -2435,6 +2509,7 @@ def bottomup_sweep_path(dev, tmp: str, root: str, start_path: str,
 # time budget at the int8 step's speed)
 INT8_SWEEP = ("gaussian_noise",)
 SERVE_BATCH = 128
+PROBE_BATCHES = 16  # tools/serve_check's repeat probe: batch sizes 1..N
 BU_SERVE_BATCH = 8
 SERVING_STEPS = 5
 
@@ -2557,7 +2632,9 @@ def int8_conv_checks(dev, cfg, start_path: str, flush) -> dict:
 
 def int8_eval_step_stats(dev, cfg, start_path: str, batch) -> dict:
     """13b, beside the sweep: the bf16 and the int8 eval step on one batch,
-    the heatmaps' difference, ms/batch, kernels per step and busy share."""
+    the heatmaps' difference, and a profile of two steps of each: ms/batch
+    in its window, kernels per step and busy share (13f times the same
+    steps without the profiler)."""
     from advmix_tpu_torch.engine.steps import make_eval_step
     from advmix_tpu_torch.models import get_pose_net, load_model_file
     from advmix_tpu_torch.models.layers import set_compute_dtype
@@ -2581,17 +2658,17 @@ def int8_eval_step_stats(dev, cfg, start_path: str, batch) -> dict:
         step = make_eval_step(m, cfg, pairs)
         heat[arm] = step.forward(batch["image"]).float()
         g0 = int8_conv2d.launches
-        ms = wall_ms(lambda: step(batch), iters=5)
-        gemms = (int8_conv2d.launches - g0) / 8
         wall_us, by_name = profiled(lambda: step(batch), steps=2)
+        gemms = (int8_conv2d.launches - g0) / 3  # a warm-up and 2 steps
+        ms = wall_us / 2 / 1e3
         busy = sum(t for t, _ in by_name.values())
         n = sum(c for _, c in by_name.values()) // 2
         out[arm] = dict(ms=ms, kernels=n, busy=busy / wall_us,
                         gemms=gemms)
         log(f"[int8] eval step {arm} at batch {batch['image'].shape[0]}: "
-            f"{ms:.3f} ms/batch ({batch['image'].shape[0] / ms * 1e3:.1f} "
-            f"img/s), {n} kernels per step, busy {100 * busy / wall_us:.1f}%"
-            f", int8 GEMMs per step {gemms:.0f}")
+            f"{ms:.3f} ms/batch in the profiler's window, {n} kernels per "
+            f"step, busy {100 * busy / wall_us:.1f}%, int8 GEMMs per step "
+            f"{gemms:.0f}")
     rng = float(heat["bf16"].max() - heat["bf16"].min())
     err = float((heat["int8"] - heat["bf16"]).abs().max()) / rng
     mean_err = float((heat["int8"] - heat["bf16"]).abs().mean()) / rng
@@ -2800,6 +2877,7 @@ def serve_path(dev, tmp: str, start_path: str, batch, exports: dict,
     from advmix_tpu_torch.ops.cuda.decode_kernel import decode_heatmaps
     from advmix_tpu_torch.tools import export as export_tool
     from advmix_tpu_torch.tools import serve as serve_tool
+    from advmix_tpu_torch.tools.serve_check import repeat_probe
 
     cfg = get_default_config()
     cfg.merge_from_file(CFG)
@@ -2850,8 +2928,7 @@ def serve_path(dev, tmp: str, start_path: str, batch, exports: dict,
             f"batch {SERVE_BATCH} equals the eval step's bit for bit, decode "
             f"launched once per predict; {ms:.3f} ms per predict "
             f"({SERVE_BATCH / ms * 1e3:.1f} img/s, host copies included; "
-            f"the eval step in this thread "
-            f"{wall_ms(lambda: step(batch), iters=5):.3f} ms)")
+            "13f times the eval step alone)")
         if name == "b0":
             httpd = serve_tool.make_http_server(server, "127.0.0.1", 0)
             th = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -2874,6 +2951,18 @@ def serve_path(dev, tmp: str, start_path: str, batch, exports: dict,
             th.join(timeout=10)
             log(f"[serve] HTTP on localhost: /healthz {info}; /predict of 7 "
                 "images equals predict()")
+            t0 = time.perf_counter()
+            probe = repeat_probe(server, PROBE_BATCHES)
+            log(f"[serve] repeat probe, PoseResNet-18 64x64's transposed "
+                f"convs at batch sizes 1..{PROBE_BATCHES}, twice each, "
+                "autotuning on and nondeterministic plans allowed: two "
+                f"answers at {len(probe['thread'])} batch sizes in a fresh "
+                f"thread {probe['thread']}, at {len(probe['server'])} "
+                f"through PoseServer.call {probe['server']} (limit 0) "
+                f"({time.perf_counter() - t0:.1f} s)")
+            if probe["server"]:
+                raise AssertionError(f"the server's plans gave two answers "
+                                     f"at batch sizes {probe['server']}")
         server.close()
         del server, model, step
         torch.cuda.empty_cache()
@@ -2960,12 +3049,7 @@ def int8_serving_phase(dev, tmp: str, start_path: str, dataset_cls,
     from advmix_tpu_torch.models import get_pose_net
     from advmix_tpu_torch.ops.quant import conv_paths
 
-    t_phase = time.perf_counter()
-    took = {}
-
-    def lap(name):
-        took[name] = time.perf_counter() - t_phase - sum(took.values())
-
+    lap = Laps("13")
     cfg = get_default_config()
     cfg.merge_from_file(CFG)
     cfg.freeze()
@@ -2994,8 +3078,7 @@ def int8_serving_phase(dev, tmp: str, start_path: str, dataset_cls,
     lap("13e serve bottom-up")
     serving_bench_arms()
     lap("13f serving_bench")
-    log(f"[int8] phase 13: {time.perf_counter() - t_phase:.1f} s ("
-        + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
+    lap.log()
     return out
 
 
@@ -3006,11 +3089,18 @@ def int8_serving_phase(dev, tmp: str, start_path: str, dataset_cls,
 DIST_TRAIN_IMAGES = 48  # of 4 people: TRAIN_ITERS global batches of 2 x 32
 DIST_F64_BATCH = 4      # the float64 check's global batch, 2 rows per rank
 DIST_TIME_ITERS = 5
-# phases 14 and 15 run beside phase 17 (`main`), whose 10 Python processes
-# share this host's threads and, on one card, cuda:0: their times carry
-# this note, and are comparable only with times taken under the same load
-TIMED_BESIDE = (" [timed beside phase 17's scripts: not comparable with a "
+# phase 17 runs beside phases 14-16 (`main`): its 10 Python processes
+# share this host's threads and, on one card, cuda:0, so times taken while
+# it runs carry this note and compare only with times under the same load
+SCRIPTS_RUN = None  # phase 17's `Beside`, set by main()
+
+
+def beside_note() -> str:
+    """The note on a timing line taken while phase 17's scripts run."""
+    if SCRIPTS_RUN is not None and SCRIPTS_RUN.thread.is_alive():
+        return (" [timed beside phase 17's scripts: not comparable with a "
                 "run of this phase alone]")
+    return ""
 
 
 def build_synthetic(cfg, is_train, image_set=None):
@@ -3281,11 +3371,6 @@ def multi_rank_phase(dev, tmp: str, start_path: str) -> dict:
     log(f"[dist] ranks on {devices} ("
         + ("NCCL" if devices[0] != devices[1] else
            "gloo: one card, NCCL refuses two ranks on a device") + ")")
-    if devices == ["cuda:0", "cuda:0"]:
-        got = launch(nccl_probe, ["cuda:0"])
-        if got != 2.0:
-            raise AssertionError(f"one-rank NCCL all-reduce gave {got}")
-        log("[dist] a one-rank NCCL group on cuda:0 all-reduced 4 MB")
 
     # the training run's data: 48 images of 4 people, and phase 4's val set
     root = os.path.join(tmp, "dist")
@@ -3305,9 +3390,18 @@ def multi_rank_phase(dev, tmp: str, start_path: str) -> dict:
             os.path.join(tmp, "dist_log"), "--load_from_D", start_path,
             "DATASET.ROOT", root, "TRAIN.END_EPOCH", "1", "PRINT_FREQ", "1"]
     one_rank = time_rank_iteration(cfg, start_path, dev, None)
+    # on one card, NCCL is checked by a one-rank group beside the two
+    # ranks' launch (a check, not a time)
+    probe = (Beside(launch, nccl_probe, ["cuda:0"])
+             if devices == ["cuda:0", "cuda:0"] else None)
     t0 = time.perf_counter()
     out = launch(dist_rank, devices, cfg, start_path, tmp, argv)
     wall = time.perf_counter() - t0
+    if probe is not None:
+        got = probe.result()
+        if got != 2.0:
+            raise AssertionError(f"one-rank NCCL all-reduce gave {got}")
+        log("[dist] a one-rank NCCL group on cuda:0 all-reduced 4 MB")
 
     lim = 1e-9
     log(f"[dist] one float64 AdvMix step (SGD, TRAIN.CROSS_REPLICA_BN, "
@@ -3370,7 +3464,7 @@ def multi_rank_phase(dev, tmp: str, start_path: str) -> dict:
         f"{t['d_allreduce_ms']:.3f} ms, of G's {t['g_bytes'] / 1e6:.1f} MB "
         f"in {t['g_allreduce_ms']:.3f} ms"
         + (" (both ranks on one card: a record, not a scaling figure)"
-           if devices[0] == devices[1] else "") + TIMED_BESIDE)
+           if devices[0] == devices[1] else "") + beside_note())
     for net in ("d", "g"):
         if f"{net}_trace" in t:
             tr = t[f"{net}_trace"]
@@ -3378,9 +3472,9 @@ def multi_rank_phase(dev, tmp: str, start_path: str) -> dict:
                 f"gradients on rank 0: NCCL kernels {tr['nccl'][0]:.1f} us "
                 f"in {tr['nccl'][1]} launches, the other device work (cat, "
                 f"copies back, division) {tr['other'][0]:.1f} us in "
-                f"{tr['other'][1]} launches{TIMED_BESIDE}")
+                f"{tr['other'][1]} launches{beside_note()}")
     log(f"[dist] phase 14: {time.perf_counter() - t_phase:.1f} s (ranks "
-        f"{wall:.1f} s){TIMED_BESIDE}")
+        f"{wall:.1f} s){beside_note()}")
     return {k: per_rank[0][k] + per_rank[1][k] for k in per_rank[0]}
 
 
@@ -3577,7 +3671,7 @@ def spatial_phase(dev, tmp: str, start_path: str, batch: dict,
         f"batch) {h['one_rank_ms']:.3f} ms, model_parallel 2 "
         f"{h['spatial_ms']:.3f} ms per batch of {SPATIAL_BATCH}; "
         f"{h['exchanges']} exchanges per forward, {h['halo_mb']:.2f} MB of "
-        f"buffers, {h['halo_ms']:.3f} ms when replayed alone{TIMED_BESIDE}")
+        f"buffers, {h['halo_ms']:.3f} ms when replayed alone{beside_note()}")
     per_rank = []
     for r in range(2):
         with open(os.path.join(tmp, f"spatial_launches_{r}.json")) as f:
@@ -3589,7 +3683,7 @@ def spatial_phase(dev, tmp: str, start_path: str, batch: dict,
     if not all(p["decode_heatmaps"] >= 1 for p in per_rank):
         raise AssertionError(f"decode did not launch on a rank: {per_rank}")
     log(f"[spatial] phase 15: {time.perf_counter() - t_phase:.1f} s"
-        f"{TIMED_BESIDE}")
+        f"{beside_note()}")
     return {k: per_rank[0][k] + per_rank[1][k] for k in per_rank[0]}
 
 
@@ -3599,7 +3693,7 @@ def spatial_phase(dev, tmp: str, start_path: str, batch: dict,
 
 HBM_MB, HBM_ITERS = 512, 20
 LOADER_IMAGES = 256
-PROFILE_STEPS = 3
+PROFILE_STEPS = 1  # traced AdvMix steps
 
 
 def run_tool(module: str, argv: list, timeout: float = 300) -> str:
@@ -3625,7 +3719,7 @@ def tooling_phase(dev, tmp: str, start_path: str, ap4: float,
     """Phase 16. Returns the kernels' launches on the parity check."""
     from advmix_tpu_torch.tools import loader_bench, parity_check
 
-    t_phase = time.perf_counter()
+    laps = Laps("16")
     torch.cuda.empty_cache()
     out = run_tool("hbm_peak", ["--mb", str(HBM_MB), "--iters",
                                 str(HBM_ITERS)])
@@ -3637,7 +3731,9 @@ def tooling_phase(dev, tmp: str, start_path: str, ap4: float,
         f.write(json.dumps(hbm) + "\n")
     log(f"[tools] hbm_peak {HBM_MB} MiB x {HBM_ITERS}: scale "
         f"{hbm['scale']:.1f} GB/s, triad {hbm['triad']:.1f} GB/s "
-        f"({hbm['card']}; the bounds divide by {PEAK_BYTES / 1e9:.0f})")
+        f"({hbm['card']}; the bounds divide by {PEAK_BYTES / 1e9:.0f})"
+        f"{beside_note()}")
+    laps("hbm_peak")
 
     t0 = time.perf_counter()
     lb = loader_bench.loader_bench(n=LOADER_IMAGES, batch=32)
@@ -3647,9 +3743,10 @@ def tooling_phase(dev, tmp: str, start_path: str, ap4: float,
         f"({lb['decode_warp_img_s_per_thread']:.1f} per thread), decode "
         f"only {lb['decode_only_img_s']:.1f} img/s "
         f"({lb['decode_only_img_s_per_thread']:.1f} per thread) "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"({time.perf_counter() - t0:.1f} s){beside_note()}")
     if not (lb["decode_warp_img_s"] > 0 and lb["decode_only_img_s"] > 0):
         raise AssertionError(f"loader_bench: {lb}")
+    laps("loader_bench")
 
     t0 = time.perf_counter()
     out = run_tool("profile", [
@@ -3663,7 +3760,8 @@ def tooling_phase(dev, tmp: str, start_path: str, ap4: float,
         raise AssertionError("tools/profile traced no device time")
     log(f"[tools] tools/profile, {PROFILE_STEPS} AdvMix W32 steps at batch "
         f"32: {total[0]:.3f} device ms per step "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"({time.perf_counter() - t0:.1f} s){beside_note()}")
+    laps("tools/profile")
 
     for k in kernel_fns:
         k.launches = 0
@@ -3682,7 +3780,8 @@ def tooling_phase(dev, tmp: str, start_path: str, ap4: float,
     if rc != 0 or launches["decode_heatmaps"] < 1 or \
             launches["oks_matrix_batched"] < 1:
         raise AssertionError(f"parity_check exit {rc}, launches {launches}")
-    log(f"[tools] phase 16: {time.perf_counter() - t_phase:.1f} s")
+    laps("parity_check")
+    laps.log(beside_note())
     return launches
 
 
@@ -4033,8 +4132,10 @@ def main(argv=()) -> None:
 
     log(f"[time] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 3. kernels vs plain versions ------------------------------------
+    laps = Laps("3")
     yardsticks(dev, flush)
     report = {"decode_heatmaps": decode_phase(dev, rng, flush)}
+    laps("yardsticks and decode")
     # the full path's shapes (phase 4's data): 47 images of 2..20 people
     # -> M=47 images padded to P=32, and one image of N=130 people
     n_img, n_big = 47, 130
@@ -4042,10 +4143,14 @@ def main(argv=()) -> None:
         2, 21, n_img)]
     report.update(oks_phase(dev, rng, flush, n_img,
                             1 << (max(counts) - 1).bit_length(), n_big))
+    laps("OKS")
     oks_route_timing(dev, np.random.RandomState(SEED + 3))
+    laps("OKS route")
+    laps.log()
 
     log(f"[time] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 4. the full path at full width ----------------------------------
+    laps = Laps("4")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     got_counts = write_coco_val(tmp, np.random.RandomState(SEED + 1),
                                 n_img, n_big)
@@ -4091,6 +4196,7 @@ def main(argv=()) -> None:
     prep = make_eval_preprocessor(cfg, dev)
     out_dir = os.path.join(tmp, "out")
 
+    laps("data, model, card vs CPU")
     for fn in (decode_heatmaps, oks_matrix_batched, oks_matrix):
         fn.launches = 0
     t0 = time.perf_counter()
@@ -4134,6 +4240,7 @@ def main(argv=()) -> None:
         raise AssertionError(f"preds {tuple(preds.shape)} not finite")
     log("[path] one batch: kernel and plain decode give identical preds")
 
+    laps("validate and one batch")
     step_ms = wall_ms(lambda: eval_step(batch))
     log(f"[path] eval step (2x HRNet-W32 bf16 fwd + decode) at batch 128: "
         f"{step_ms:.3f} ms/batch, {128 / step_ms * 1e3:.1f} img/s")
@@ -4147,8 +4254,11 @@ def main(argv=()) -> None:
         ms_in_step=in_step, ms_after_forward=after["vector"],
         first_design_ms_after_forward=after["scalar"])
 
+    laps("timing and profiles")
     # phase 13's exports trace on the host while phases 5-12 run
     export_jobs = start_exports(dev, tmp, start_path, batch["image"])
+    laps("start exports")
+    laps.log()
 
     log(f"[time] phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 5. AdvMix training through the train entry point -----------------
@@ -4200,11 +4310,13 @@ def main(argv=()) -> None:
                                     first_batch(loader, prep, dev),
                                     export_jobs))
 
+    global SCRIPTS_RUN
     log(f"[time] phase 17 starts at {time.perf_counter() - t_start:.1f} s")
-    # ---- 17, beside 14 and 15: the scripts, the demo and the A/B ----------
+    # ---- 17, beside 14-16: the scripts, the demo and the A/B ------------
     # processes of their own, ~20 s each before their work on this host,
-    # on the last card (on one card beside the two ranks' gloo records)
-    scripts = Beside(scripts_phase, torch.device(
+    # on the last card (on one card beside phases 14-16's work, whose
+    # timing lines say so; phase 13's serving times run alone)
+    SCRIPTS_RUN = Beside(scripts_phase, torch.device(
         "cuda", torch.cuda.device_count() - 1), tmp)
 
     log(f"[time] phase 14 starts at {time.perf_counter() - t_start:.1f} s")
@@ -4217,12 +4329,12 @@ def main(argv=()) -> None:
                                      first_batch(loader, prep, dev),
                                      dataset.flip_pairs)
 
-    paths["scripts"] = scripts.result()
-    log(f"[time] phase 17 joined at {time.perf_counter() - t_start:.1f} s")
-
     log(f"[time] phase 16 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 16. the tools ------------------------------------------------------
     paths["parity"] = tooling_phase(dev, tmp, start_path, ap, kernel_fns)
+
+    paths["scripts"] = SCRIPTS_RUN.result()
+    log(f"[time] phase 17 joined at {time.perf_counter() - t_start:.1f} s")
 
     log(f"[time] phases 1-17: {time.perf_counter() - t_start:.1f} s")
     kernels = []

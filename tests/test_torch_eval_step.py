@@ -8,6 +8,10 @@ then differ only by the f32 inverse affine, 1e-3 px at these coordinates;
 maxvals and the loss by rtol 1e-4.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -28,6 +32,7 @@ from torch_port_util import (TINY_HEATMAP, TINY_IMAGE, calibrate_bn,
                              unflatten, variable_shapes)
 
 TEST_FLAGS = dict(FLIP_TEST=True, SHIFT_HEATMAP=True, POST_PROCESS=True)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("loss", ["smooth_l1", "ohkm"])
@@ -90,3 +95,21 @@ def test_eval_step_matches_jax(loss):
                                       np.asarray(jmet[k]), err_msg=k)
     # the padded row is out of the PCK counts
     assert float(met["pck_valid_j"].sum()) <= vis[:3].sum()
+
+
+def test_eval_step_survives_jax_tools_on_sys_path():
+    """The parity test in a fresh interpreter whose sys.path starts with the
+    JAX package's `tools/`, as tests/test_misc_paths.py:187 leaves it in a
+    worker of the Tier-1 run: there the decode op's first call imports
+    `torch._dynamo` (and cProfile) for the first time, as it did when both
+    cases failed with `module 'profile' has no attribute 'run'`."""
+    code = ("import sys, pytest; "
+            f"sys.path.insert(0, {os.path.join(REPO, 'tools')!r}); "
+            "sys.exit(pytest.main(['-q', '-p', 'no:cacheprovider', "
+            "'tests/test_torch_eval_step.py', '-k', "
+            "'test_eval_step_matches_jax and smooth_l1']))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-2000:]
+    assert "1 passed" in r.stdout

@@ -19,9 +19,10 @@ on at most 0.5% of values. The bottom-up infer (plain PyTorch, no hand
 kernel) in float64: the card equals the CPU to 1e-12 of the range. The
 int8 convolution (im2col + `torch._int_mm`, a library GEMM) is bit-equal
 to its CPU route, a float64 convolution of the codes; an exported program
-launches the decode kernel once per call. Two ranks on the card(s) take
-the float64 AdvMix step of one rank on their halves of its batch, within
-1e-9 of the update's range.
+launches the decode kernel once per call, and a server answers one input
+twice with the same bits where autotuning in a fresh thread does not. Two
+ranks on the card(s) take the float64 AdvMix step of one rank on their
+halves of its batch, within 1e-9 of the update's range.
 """
 
 import numpy as np
@@ -461,6 +462,58 @@ def test_cuda_exported_program_launches_decode(cuda, tmp_path):
     assert decode_heatmaps.launches == before + 2
     with pytest.raises(ValueError, match="exported on cuda"):
         serve_tool.PoseServer(str(tmp_path / "e"), "cpu")
+
+
+@pytest.mark.gpu
+def test_cuda_polymorphic_int8_predict_repeats_at_new_batch_sizes(
+        cuda, tmp_path):
+    """A batch-polymorphic int8 export, warmed at batch 1, answers twice
+    with the same bits at three batch sizes it meets for the first time,
+    in a process that autotunes cuDNN's plans and allows nondeterministic
+    ones: the server's device calls allow only deterministic plans."""
+    from advmix_tpu_torch.tools import export as export_tool
+    from advmix_tpu_torch.tools import serve as serve_tool
+
+    export_tool.main([
+        "--cfg", "experiments/synthetic/res18_64x64_smoke.yaml", "--batch",
+        "0", "--out", str(tmp_path / "e"), "--int8"])
+    cudnn = torch.backends.cudnn
+    before = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = True, False
+    try:
+        server = serve_tool.PoseServer(str(tmp_path / "e"))
+        x = np.random.RandomState(4).randn(17, 64, 64, 3).astype(np.float32)
+        for b in (3, 9, 17):
+            first = server.predict(x[:b])
+            assert first.shape == (b, 8, 3) and np.isfinite(first).all()
+            assert np.array_equal(first, server.predict(x[:b])), b
+        assert (cudnn.benchmark, cudnn.deterministic) == (True, False)
+        server.close()
+    finally:
+        cudnn.benchmark, cudnn.deterministic = before
+
+
+@pytest.mark.gpu
+def test_cuda_repeat_probe_separates_server_from_autotuning(cuda, tmp_path):
+    """tools/serve_check's repeat probe at batch sizes 1..48: with autotuning
+    on and nondeterministic plans allowed, PoseResNet-18 64x64's transposed
+    convs can answer one input twice with other bits; through
+    `PoseServer.call`, which allows deterministic plans only, never. A
+    server that inherits the process's flags fails here whenever autotuning
+    picks such a plan for it (on an H100 with PyTorch 2.11: at batch sizes 1
+    and 2 in each of 4 processes). The fresh thread's count varies from run
+    to run (0 to 4 sizes), so it is not held."""
+    from advmix_tpu_torch.tools import export as export_tool
+    from advmix_tpu_torch.tools import serve as serve_tool
+    from advmix_tpu_torch.tools.serve_check import repeat_probe
+
+    export_tool.main([
+        "--cfg", "experiments/synthetic/res18_64x64_smoke.yaml", "--batch",
+        "0", "--out", str(tmp_path / "e")])
+    server = serve_tool.PoseServer(str(tmp_path / "e"))
+    probe = repeat_probe(server, 48)
+    server.close()
+    assert probe["server"] == [], probe
 
 
 @pytest.mark.gpu

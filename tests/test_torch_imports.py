@@ -230,6 +230,7 @@ def test_int8_and_serving_modules_name_their_jax_counterpart(name,
 @pytest.mark.parametrize("tool,args", [
     ("export", ["--cfg", W32]),
     ("serve", ["--export_dir", "."]),
+    ("serve_check", ["--export_dir", "."]),
     ("serving_bench", ["--cfg", W32]),
 ])
 def test_serving_entry_points_without_card_raise(tmp_path, tool, args):

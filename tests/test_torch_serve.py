@@ -49,6 +49,7 @@ from advmix_tpu_torch.models.convert import jax_to_torch_state_dict
 from advmix_tpu_torch.ops.cuda.decode_kernel import decode_heatmaps
 from advmix_tpu_torch.tools import export as export_tool
 from advmix_tpu_torch.tools import serve as serve_tool
+from advmix_tpu_torch.tools import serve_check
 from advmix_tpu_torch.tools import serving_bench
 
 from test_torch_bottomup_steps import _write_yaml, coco_tree  # noqa: F401
@@ -174,6 +175,43 @@ def test_server_equals_eval_step_bit_for_bit(weights, exports):
                                   _eval_step_preds(model, x7))
     np.testing.assert_array_equal(server.call(_eval_step_preds, model, x7),
                                   server.predict(x7))
+    server.close()
+
+
+@pytest.mark.parametrize("process", [(False, False), (True, False),
+                                     (True, True)])
+def test_server_owns_its_cudnn_flags(exports, process):
+    """Each device call allows only cuDNN's deterministic plans, whatever
+    the process set, and keeps the process's `benchmark` (autotuning then
+    picks among deterministic plans); the process's flags are back after
+    the call."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = process
+    try:
+        server = serve_tool.PoseServer(
+            os.path.dirname(exports["b0"]["path"]), "cpu")
+        assert server.call(lambda: (cudnn.benchmark, cudnn.deterministic)
+                           ) == (process[0], True)
+        assert (cudnn.benchmark, cudnn.deterministic) == process
+        server.close()
+    finally:
+        cudnn.benchmark, cudnn.deterministic = before
+
+
+def test_serve_check_times_and_probes_a_cpu_server(exports):
+    """tools/serve_check's parts on a CPU server: every timed predict has
+    the first's bits; the repeat probe finds no two answers on the CPU and
+    puts the process's cuDNN flags back."""
+    server = serve_tool.PoseServer(
+        os.path.dirname(exports["b0"]["path"]), "cpu")
+    t = serve_check.time_predict(server, 3, 2)
+    assert t["same"] and len(t["ms"]) == 2 and t["best_ms"] > 0
+    cudnn = torch.backends.cudnn
+    before = cudnn.benchmark, cudnn.deterministic
+    assert serve_check.repeat_probe(server, 2) == {"thread": [],
+                                                   "server": []}
+    assert (cudnn.benchmark, cudnn.deterministic) == before
     server.close()
 
 

@@ -28,10 +28,10 @@ ADVMIX_KINDS = ("advmix", "bottomup_advmix")
 @contextlib.contextmanager
 def rank_sys_path():
     """sys.path without the JAX package's `tools/` and `scripts/` folders,
-    which some test files put on it for good: a spawned rank inherits
-    sys.path, and there `tools/profile.py` would shadow the standard
-    library's `profile` (torch imports cProfile on an optimizer's first
-    use)."""
+    which some test files put on it for good (tests/test_misc_paths.py,
+    tests/test_corruptions.py): a spawned rank inherits sys.path, and
+    there `tools/profile.py` would shadow the standard library's `profile`
+    (torch imports cProfile on an optimizer's first use)."""
     kept = list(sys.path)
     sys.path[:] = [p for p in kept if os.path.basename(
         os.path.normpath(p)) not in ("tools", "scripts")]
@@ -39,6 +39,26 @@ def rank_sys_path():
         yield
     finally:
         sys.path[:] = kept
+
+
+@contextlib.contextmanager
+def stdlib_profile():
+    """`rank_sys_path` for the test process itself, which also drops a
+    `profile` module that came from elsewhere than the standard library
+    out of sys.modules. torch imports cProfile, and with it `profile`,
+    when it first imports `torch._dynamo`: at the first call of a custom op
+    (the port's decode and int8 ops), an export or an optimizer step. A
+    test that makes that first call after a JAX-package test left `tools/`
+    on sys.path fails in the import (`module 'profile' has no attribute
+    'run'`) unless cProfile was imported inside this before:
+    tests/torch_port_util.py does so while the test files are collected."""
+    shadow = sys.modules.get("profile")
+    if shadow is not None and os.path.dirname(
+            getattr(shadow, "__file__", "") or "") != os.path.dirname(
+            os.__file__):
+        del sys.modules["profile"]
+    with rank_sys_path():
+        yield
 
 
 def port_d(cfg, flat: dict, dtype, device="cpu"):

@@ -10,6 +10,16 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from torch_dist_worker import stdlib_profile
+
+# bind the standard library's cProfile and profile while the port's test
+# files are collected, before any test runs: torch imports them only with
+# `torch._dynamo`, at a process's first custom-op call, and by then a
+# JAX-package test may have left `tools/` (and its profile.py) at the head
+# of sys.path (tests/test_misc_paths.py does)
+with stdlib_profile():
+    import cProfile  # noqa: F401
+
 # the W32 topology at narrow widths; stage 3's two modules and the two
 # blocks per branch make the scanned layout differ from the unscanned one
 TINY_EXTRA = dict(
