@@ -1,0 +1,6 @@
+"""Share of the traced AdvMix window in which no device operation ran."""
+from ._per_iter import idle_pct
+
+
+def read(trace):
+    return idle_pct(trace)
