@@ -68,6 +68,7 @@ from ..ops.transforms import flip_back, shift_heatmap_right, \
     transform_preds_batch
 from ..parallel.dist import all_reduce_mean_, all_reduce_sum_, \
     average_buffers_, grads_of
+from ..utils.profiling import span
 from .heatmap_debug import debug_outputs
 
 
@@ -211,6 +212,10 @@ def make_advmix_step(state, cfg, alpha: float = 0.1,
     opt_d, opt_g = state.optimizer_d, state.optimizer_g
 
     def step(batch):
+        with span("advmix.advmix_step"):
+            return _step(batch)
+
+    def _step(batch):
         views = batch["views"]
         clean = views[:, :3]
         target, tw = batch["target"], batch["target_weight"]
@@ -220,69 +225,75 @@ def make_advmix_step(state, cfg, alpha: float = 0.1,
         # G runs once, and its graph is kept: the G update goes back
         # through this same mix, whose weights were computed before D's
         # update (function.py:137-144)
-        mixed, w = mix_views(g(views), views, num_views)
-        step.last_mix_weights = w.detach()
+        with span("advmix.generate"):
+            mixed, w = mix_views(g(views), views, num_views)
+            step.last_mix_weights = w.detach()
 
         # the teacher, in eval mode, on the clean view (function.py:148-149)
-        with torch.no_grad():
+        with span("advmix.teacher"), torch.no_grad():
             teacher_out = teacher(clean)
 
-        stale = None
-        if _mutation == "stale_d_in_g_step":
-            stale = {k: v.detach().clone() for k, v in d.state_dict().items()}
-
         # ---- D update on the detached mix (function.py:146-155) ----
-        opt_d.zero_grad(set_to_none=True)
-        out = d(mixed.detach())
-        loss_d = (loss_of(out, target, tw) * (1.0 - alpha)
-                  + loss_of(out, teacher_out, tw) * alpha)
-        loss_d.backward()
-        if group is not None:
-            all_reduce_mean_(grads_of(d), group)
-        opt_d.step()
-        if group is not None:
-            average_buffers_(d, group)  # stats_after_d
-        del out  # D's first graph is freed before the second is built
+        with span("advmix.d_update"):
+            stale = None
+            if _mutation == "stale_d_in_g_step":
+                stale = {k: v.detach().clone()
+                         for k, v in d.state_dict().items()}
+            opt_d.zero_grad(set_to_none=True)
+            out = d(mixed.detach())
+            loss_d = (loss_of(out, target, tw) * (1.0 - alpha)
+                      + loss_of(out, teacher_out, tw) * alpha)
+            loss_d.backward()
+            if group is not None:
+                all_reduce_mean_(grads_of(d), group)
+            with span("advmix.d_adam"):
+                opt_d.step()
+            if group is not None:
+                average_buffers_(d, group)  # stats_after_d
+            del out  # D's first graph is freed before the second is built
 
         # ---- G update (function.py:158-164) ----
         # D is frozen for this step but has its updated parameters and
         # runs in train mode again: its BN statistics update a second time
-        mixed_in = mixed.detach().requires_grad_(True)
-        if _mutation == "single_bn_update":
-            kept = {k: v.clone() for k, v in d.named_buffers()}
-        if stale is not None:
-            out_g = torch.func.functional_call(d, stale, (mixed_in,))
-        else:
-            out_g = d(mixed_in)
-        loss_g = -loss_of(out_g, target, tw) * adv_loss_weight
-        # the gradient reaches G only through the saved mix, and none of
-        # it lands in D's .grad
-        (dmixed,) = torch.autograd.grad(loss_g, mixed_in)
-        opt_g.zero_grad(set_to_none=True)
-        mixed.backward(dmixed)
-        if group is not None:
-            all_reduce_mean_(grads_of(g), group)
-        opt_g.step()
-        with torch.no_grad():
+        with span("advmix.g_update"):
+            mixed_in = mixed.detach().requires_grad_(True)
             if _mutation == "single_bn_update":
-                for k, v in d.named_buffers():
-                    v.copy_(kept[k])
-            elif stale is not None:
-                for k, v in d.named_buffers():
-                    v.copy_(stale[k])
-        if group is not None:
-            average_buffers_(d, group)  # stats_after_g
+                kept = {k: v.clone() for k, v in d.named_buffers()}
+            if stale is not None:
+                out_g = torch.func.functional_call(d, stale, (mixed_in,))
+            else:
+                out_g = d(mixed_in)
+            loss_g = -loss_of(out_g, target, tw) * adv_loss_weight
+            # the gradient reaches G only through the saved mix, and none
+            # of it lands in D's .grad
+            (dmixed,) = torch.autograd.grad(loss_g, mixed_in)
+            opt_g.zero_grad(set_to_none=True)
+            mixed.backward(dmixed)
+            if group is not None:
+                all_reduce_mean_(grads_of(g), group)
+            with span("advmix.g_adam"):
+                opt_g.step()
+            with torch.no_grad():
+                if _mutation == "single_bn_update":
+                    for k, v in d.named_buffers():
+                        v.copy_(kept[k])
+                elif stale is not None:
+                    for k, v in d.named_buffers():
+                        v.copy_(stale[k])
+            if group is not None:
+                average_buffers_(d, group)  # stats_after_g
 
-        state.step += 1
-        acc, cnt = _pck(out_g, target, group)
-        metrics = _mean_metrics(
-            {"loss_d": loss_d.detach(), "loss_g": loss_g.detach(),
-             "acc": acc, "acc_cnt": cnt}, ("loss_d", "loss_g"), group)
-        if debug:
-            dbg = debug_outputs(out_g)
-            dbg["mixed"] = mixed.detach()  # the adversarial mix, for dumps
-            return metrics, dbg
-        return metrics
+        with span("advmix.metrics"):
+            state.step += 1
+            acc, cnt = _pck(out_g, target, group)
+            metrics = _mean_metrics(
+                {"loss_d": loss_d.detach(), "loss_g": loss_g.detach(),
+                 "acc": acc, "acc_cnt": cnt}, ("loss_d", "loss_g"), group)
+            if debug:
+                dbg = debug_outputs(out_g)
+                dbg["mixed"] = mixed.detach()  # the adversarial mix, for dumps
+                return metrics, dbg
+            return metrics
 
     step.last_mix_weights = None
     return _with_bn_group(step, cfg, group)
@@ -322,30 +333,38 @@ def make_eval_step(model, cfg, flip_pairs: Sequence, debug: bool = False,
 
     @torch.no_grad()
     def step(batch):
-        out = forward(batch["image"])
-        valid = batch.get("valid")
-        if valid is None:
-            valid = torch.ones(out.shape[0], device=out.device)
-        v = valid.to(torch.float32)
-        # padded tail rows (the Loader repeats the last sample) are masked
-        # out of the logged loss and PCK
-        ps = loss_per_sample(out, batch["target"], batch["target_weight"])
-        hit_j, val_j = pck_sums(out, batch["target"], sample_mask=v)
-        if group is None:
-            loss = (ps * v).sum() / v.sum().clamp(min=1.0)
-        else:
-            sums = torch.stack([(ps * v).sum(), v.sum()])
-            all_reduce_sum_([sums, hit_j, val_j], group)
-            loss = sums[0] / sums[1].clamp(min=1.0)
-        _, acc, cnt = pck_from_sums(hit_j, val_j)
-        if soft:
-            preds, maxvals = get_final_preds_softargmax(
-                out, batch["center"], batch["scale"], post_process=post)
-        else:
-            coords, maxvals = decode_heatmaps(out, post_process=post)
-            h, w = out.shape[2], out.shape[3]
-            preds = transform_preds_batch(coords, batch["center"],
-                                          batch["scale"], (w, h))
+        with span("advmix.eval_step"):
+            return _step(batch)
+
+    def _step(batch):
+        with span("advmix.eval_forward"):
+            out = forward(batch["image"])
+        with span("advmix.eval_score"):
+            valid = batch.get("valid")
+            if valid is None:
+                valid = torch.ones(out.shape[0], device=out.device)
+            v = valid.to(torch.float32)
+            # padded tail rows (the Loader repeats the last sample) are
+            # masked out of the logged loss and PCK
+            ps = loss_per_sample(out, batch["target"],
+                                 batch["target_weight"])
+            hit_j, val_j = pck_sums(out, batch["target"], sample_mask=v)
+            if group is None:
+                loss = (ps * v).sum() / v.sum().clamp(min=1.0)
+            else:
+                sums = torch.stack([(ps * v).sum(), v.sum()])
+                all_reduce_sum_([sums, hit_j, val_j], group)
+                loss = sums[0] / sums[1].clamp(min=1.0)
+            _, acc, cnt = pck_from_sums(hit_j, val_j)
+        with span("advmix.eval_decode"):
+            if soft:
+                preds, maxvals = get_final_preds_softargmax(
+                    out, batch["center"], batch["scale"], post_process=post)
+            else:
+                coords, maxvals = decode_heatmaps(out, post_process=post)
+                h, w = out.shape[2], out.shape[3]
+                preds = transform_preds_batch(coords, batch["center"],
+                                              batch["scale"], (w, h))
         metrics = {"loss": loss, "acc": acc, "acc_cnt": cnt,
                    "pck_hit_j": hit_j, "pck_valid_j": val_j}
         if debug:

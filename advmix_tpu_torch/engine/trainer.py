@@ -45,6 +45,7 @@ from ..ops.heatmap import generate_target
 from ..ops.transforms import warp_affine
 from ..parallel import dist as pdist
 from ..utils.logging import LOGGER_NAME, AverageMeter, print_name_value
+from ..utils.profiling import span
 
 logger = logging.getLogger(LOGGER_NAME)
 
@@ -124,6 +125,10 @@ def make_preprocessor(cfg, advmix: bool, device: torch.device,
 
     @torch.no_grad()
     def prep(raw, generator):
+        with span("advmix.train_prep"):
+            return _prep(raw, generator)
+
+    def _prep(raw, generator):
         img = raw["image"]
         if device_warp:
             img = warp_affine(img, raw["warp_matrix"], image_size)
@@ -167,15 +172,17 @@ def make_eval_preprocessor(cfg, device: torch.device,
     corrupted = corruption not in (None, "", "clean")
 
     def prep(image_u8, joints, joints_vis):
-        img = image_u8.to(torch.float32)
-        if corrupted:
-            img = corrupt(img, corruption, severity,
-                          torch.Generator(img.device).manual_seed(1),
-                          exact_render=True)
-        target, _, tw = generate_target(joints, joints_vis, image_size,
-                                        heatmap_size, sigma)
-        return {"image": (img - mean) / std, "target": target,
-                "target_weight": tw}
+        with span("advmix.eval_prep"):
+            img = image_u8.to(torch.float32)
+            if corrupted:
+                with span("advmix.corrupt"):
+                    img = corrupt(img, corruption, severity,
+                                  torch.Generator(img.device).manual_seed(1),
+                                  exact_render=True)
+            target, _, tw = generate_target(joints, joints_vis, image_size,
+                                            heatmap_size, sigma)
+            return {"image": (img - mean) / std, "target": target,
+                    "target_weight": tw}
 
     return prep
 

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import count
 from .transforms import warp_affine
 
 # ---------------------------------------------------------------------------
@@ -62,9 +63,11 @@ MAX_CONSTANTS = 256
 def _const(key: tuple, build):
     """The constant of `key`, built by `build()` at its first use. Keys are
     (kind, shape tag, ...): the tag is the (h, w) or (n,) the constant was
-    made for. Least recently used entries leave beyond MAX_CONSTANTS."""
+    made for. Least recently used entries leave beyond MAX_CONSTANTS. Each
+    build is an `advmix.count.const_build` event in a profiled run."""
     val = _CONSTANTS.pop(key, None)
     if val is None:
+        count("const_build")
         val = build()
     _CONSTANTS[key] = val
     while len(_CONSTANTS) > MAX_CONSTANTS:

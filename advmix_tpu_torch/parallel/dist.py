@@ -42,6 +42,7 @@ import torch.multiprocessing as mp
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 
 # the rank's device and its host-object group, set by init_process_group:
 # process-wide, as torch.distributed's own default group is
@@ -125,12 +126,15 @@ def all_reduce_(t: torch.Tensor, group) -> None:
     """Sum `t` in place over `group`. A mesh reduces hierarchically, over
     its data axes from the innermost: within "data", then across "dcn", as
     XLA schedules a `pmean` over `data_axes` (intra-slice, then the
-    cross-slice hop)."""
-    if isinstance(group, DeviceMesh):
-        for axis in reversed(data_axes(group)):
-            dist.all_reduce(t, group=group.get_group(axis))
-    else:
-        dist.all_reduce(t, group=group)
+    cross-slice hop). One `advmix.all_reduce` span and count event a call
+    in a profiled run."""
+    count("all_reduce")
+    with span("advmix.all_reduce"):
+        if isinstance(group, DeviceMesh):
+            for axis in reversed(data_axes(group)):
+                dist.all_reduce(t, group=group.get_group(axis))
+        else:
+            dist.all_reduce(t, group=group)
 
 
 def backend_for(devices) -> str:
@@ -244,7 +248,9 @@ def broadcast_module_(module, src: int = 0, group=None) -> None:
     if world() == 1:
         return
     ts = [t.data for t in list(module.parameters()) + list(module.buffers())]
-    _coalesced(ts, lambda f, g: dist.broadcast(f, src, group=g), group, None)
+    with span("advmix.broadcast"):
+        _coalesced(ts, lambda f, g: dist.broadcast(f, src, group=g), group,
+                   None)
 
 
 class AllReduceMean(torch.autograd.Function):

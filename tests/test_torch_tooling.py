@@ -1,15 +1,17 @@
 """The port's tooling: utils/profiling.py, utils/summary.py and the tools
 profile, hbm_peak, loader_bench and parity_check, on the CPU at small sizes.
 
-- `StepTimer` and `trace` as tests/test_misc_paths.py:113 holds the JAX
-  ones, and `trace` writes a Chrome trace;
+- `trace` as tests/test_misc_paths.py:113 holds the JAX one, and it
+  writes a Chrome trace;
 - `analyze_kernels` and `analyze_trace` on a written Chrome trace, as
   tests/test_misc_paths.py:173 holds the JAX `analyze_kernels`: per-kernel
   sums over steps, an operator's bytes and FLOPs charged once to its first
   kernel (through the enclosing operator that counts FLOPs), the
   max(bytes, FLOPs) speed of light, no roofline without a measured peak;
-- `tools/profile` on the synthetic smoke YAML (two ranks) and on a narrowed
-  HigherHRNet AdvMix config with `--device cpu`, as
+- `tools/profile` on the synthetic smoke YAML (two ranks: the by-phase
+  table holds rank 0's collectives; AdvMix: the step's phases; `--eval`
+  with a corruption: the eval phases, no constant built) and on a
+  narrowed HigherHRNet AdvMix config with `--device cpu`, as
   tests/test_scripts.py:293,316 run the JAX tool;
 - `model_summary`'s parameter and BN-statistic counts equal the JAX
   `model_summary`'s exactly; its FLOPs (FlopCounterMode: every tap of each
@@ -35,8 +37,7 @@ from advmix_tpu.utils.summary import model_summary as jax_model_summary
 from advmix_tpu_torch.models import get_pose_net
 from advmix_tpu_torch.tools import hbm_peak, loader_bench, parity_check
 from advmix_tpu_torch.tools import profile as profile_tool
-from advmix_tpu_torch.utils.profiling import StepTimer, by_family, \
-    family_of, trace
+from advmix_tpu_torch.utils.profiling import by_family, family_of, trace
 from advmix_tpu_torch.utils.summary import format_summary, model_summary, \
     per_layer_summary
 
@@ -50,13 +51,10 @@ W32 = os.path.join(ROOT, "experiments/coco/hrnet/w32_256x192_advmix.yaml")
 
 
 def test_step_timer_and_trace(tmp_path):
-    t = StepTimer(warmup=1)
     x = torch.ones(8, 8)
     with trace(str(tmp_path / "off"), enabled=False) as prof:
         assert prof is None
-        for _ in range(3):
-            t.tick(8, sync={"y": x * 2})
-    assert t.img_per_sec > 0 and t.images == 16
+        torch.mm(x, x)
     assert not (tmp_path / "off").exists()
     with trace(str(tmp_path / "on")):
         torch.mm(x, x)
@@ -163,6 +161,64 @@ def test_profile_cli_top_down_two_ranks(tmp_path, capsys):
             "OUTPUT_DIR", str(tmp_path)])
     assert np.isfinite(out["metrics"]["loss"])
     assert (tmp_path / "trace" / "trace.json").is_file()
+    # rank 0's collectives: the gradients', the BN statistics', PCK's and
+    # the loss's means, one span and one count event a collective
+    phases = {r[0]: r for r in out["phases"]}
+    assert {"advmix.train_prep", "advmix.all_reduce",
+            "advmix.count.all_reduce"} <= set(phases)
+    assert phases["advmix.all_reduce"][1] >= 4
+    assert phases["advmix.count.all_reduce"][1] \
+        == phases["advmix.all_reduce"][1]
+    assert phases["advmix.all_reduce"][3] is None  # no device on the CPU
+
+
+def test_profile_cli_top_down_advmix_phases(tmp_path, capsys):
+    out = profile_tool.main([
+        "--profile_steps", "2", "--trace_dir", str(tmp_path / "trace"),
+        "--cfg", SMOKE_CFG, "--advmix", "--sample_times", "3",
+        "--device", "cpu", "TRAIN.BATCH_SIZE_PER_GPU", "2",
+        "OUTPUT_DIR", str(tmp_path)])
+    assert "by phase" in capsys.readouterr().out
+    assert np.isfinite(out["metrics"]["loss_d"])
+    rows = {r[0]: r[1:] for r in out["phases"]}
+    assert list(rows) == ["advmix.train_prep", "advmix.advmix_step",
+                          "advmix.generate", "advmix.teacher",
+                          "advmix.d_update", "advmix.d_adam",
+                          "advmix.g_update", "advmix.g_adam",
+                          "advmix.metrics"]
+    for name, (calls, host, dev, idle, launches) in rows.items():
+        assert calls == 1.0 and host > 0, name
+        assert dev is idle is launches is None, name  # host ms only
+    parts = sum(rows[k][1] for k in ("advmix.generate", "advmix.teacher",
+                                     "advmix.d_update", "advmix.g_update",
+                                     "advmix.metrics"))
+    assert parts <= rows["advmix.advmix_step"][1]
+
+
+def test_profile_cli_eval_corrupted_phases(tmp_path, capsys):
+    out = profile_tool.main([
+        "--eval", "--corruption_type", "defocus_blur", "--severity", "1",
+        "--profile_steps", "2", "--trace_dir", str(tmp_path / "trace"),
+        "--cfg", SMOKE_CFG, "--device", "cpu", "TEST.BATCH_SIZE_PER_GPU",
+        "2", "OUTPUT_DIR", str(tmp_path)])
+    printed = capsys.readouterr().out
+    assert "eval defocus_blur 1" in printed
+    assert "corruption constants built a step: 0.0" in printed
+    assert np.isfinite(out["metrics"]["loss"])
+    rows = {r[0]: r[1:] for r in out["phases"]}
+    # the warm-up built the pass's constants: the profiled steps build none
+    assert list(rows) == ["advmix.eval_prep", "advmix.corrupt",
+                          "advmix.eval_step", "advmix.eval_forward",
+                          "advmix.eval_score", "advmix.eval_decode"]
+    assert out["const_builds_per_step"] == 0
+    for name, (calls, host, dev, idle, launches) in rows.items():
+        assert calls == 1.0 and host > 0, name
+        assert dev is idle is launches is None, name  # host ms only
+    assert rows["advmix.corrupt"][1] <= rows["advmix.eval_prep"][1]
+    parts = sum(rows[k][1] for k in ("advmix.eval_forward",
+                                     "advmix.eval_score",
+                                     "advmix.eval_decode"))
+    assert parts <= rows["advmix.eval_step"][1]
 
 
 def test_profile_cli_bottomup_advmix(tmp_path, capsys):
