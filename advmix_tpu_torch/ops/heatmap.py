@@ -170,8 +170,11 @@ def pck_sums(output: torch.Tensor, target: torch.Tensor, thr: float = 0.5,
     pred, _ = get_max_preds(output)
     tgt, _ = get_max_preds(target)
     h, w = output.shape[2], output.shape[3]
-    norm = torch.tensor([h / 10.0, w / 10.0], dtype=torch.float32,
-                        device=output.device)
+    # filled on the device, not copied from the host: a CUDA graph of the
+    # AdvMix step captures this
+    norm = torch.full((2,), h / 10.0, dtype=torch.float32,
+                      device=output.device)
+    norm[1:].fill_(w / 10.0)
     valid = (tgt[..., 0] > 1) & (tgt[..., 1] > 1)
     if sample_mask is not None:
         valid = valid & (sample_mask[:, None] > 0)

@@ -28,7 +28,9 @@ Phases, each fatal on failure:
    warp) for one epoch of a few iterations of batch 32 on a synthetic COCO
    train set, with the per-epoch validate() (the three kernels launch
    again), a checkpoint, a final state, and a second call that resumes and
-   trains nothing; the step's invariants asserted on the card; one float64
+   trains nothing; the AdvMix step's counters under a host profiler (one
+   eager iteration, one CUDA-graph capture, a replay for every later
+   iteration); the step's invariants asserted on the card; one float64
    and one f32 step on the card against the same step on the CPU; the
    step, the view synthesis and both timed at batch 32 and 128, and
    profiled at 128 (phase 16's `tools/profile` traces it at 32);
@@ -96,7 +98,9 @@ Phases, each fatal on failure:
    through `tools/test_corruption.main --on_the_fly` (the clean pass and
    one corruption's 5 severities); `tools/train.main --advmix` with
    TRAIN.INT8_TEACHER (3 iterations of batch 32, 292 teacher convs
-   quantized) and the int8-teacher iteration timed by `tools/bench`;
+   quantized, each launched from the host every iteration: an int8 teacher
+   keeps the iteration eager) and the int8-teacher iteration timed by
+   `tools/bench`;
    exports through `python -m advmix_tpu_torch.tools.export` at batch 128,
    at batch 0 and with --int8 (started in the background after phase 4:
    tracing takes the host a minute or more each), each served by
@@ -886,15 +890,34 @@ def train_phase(dev, tmp: str, start_path: str, dataset_cls, kernel_fns):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    result = train_tool.main(argv, build_dataset=build)
+    # a host-only profiler, for the AdvMix step's counters
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        result = train_tool.main(argv, build_dataset=build)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernel_fns}
+    counters = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("advmix.count."):
+            k = e.name()[len("advmix.count."):]
+            counters[k] = counters.get(k, 0) + 1
     log(f"[train] tools/train.main --advmix --sample_times 3, 1 epoch of "
         f"{TRAIN_ITERS} iterations of batch 32 + validate(): {wall:.2f} s "
-        f"(cuDNN autotuning and first launches included), peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"kernel launches {launches}")
+        f"(cuDNN autotuning and first launches included; under a host "
+        f"profiler), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, kernel "
+        f"launches {launches}, AdvMix step counters {counters}")
+    # one card: the first iteration eager, then one capture, every later
+    # iteration a replay (the capture's own included)
+    got = {k: counters.get(k, 0)
+           for k in ("eager_step", "graph_capture", "graph_replay")}
+    want = ({"eager_step": 1, "graph_capture": 1,
+             "graph_replay": TRAIN_ITERS - 1} if dev.type == "cuda" else
+            {"eager_step": TRAIN_ITERS, "graph_capture": 0,
+             "graph_replay": 0})
+    if got != want:
+        raise AssertionError(f"AdvMix step counters {got}, expected {want}")
     for k, n in launches.items():
         if n < 1:
             raise AssertionError(f"{k} was not launched on the training path")
@@ -2726,6 +2749,7 @@ def int8_teacher_path(dev, tmp: str, start_path: str, dataset_cls,
     iterations of batch 32, and the iteration timed through
     `tools/bench.time_advmix(int8_teacher=True)`."""
     from advmix_tpu_torch.config import get_default_config
+    from advmix_tpu_torch.ops.int8_conv import int8_conv2d
     from advmix_tpu_torch.tools import train as train_tool
     from advmix_tpu_torch.tools.bench import time_advmix
 
@@ -2742,6 +2766,7 @@ def int8_teacher_path(dev, tmp: str, start_path: str, dataset_cls,
 
     for fn in kernel_fns:
         fn.launches = 0
+    int8_conv2d.launches = 0
     t0 = time.perf_counter()
     result = train_tool.main(argv, build_dataset=build)
     torch.cuda.synchronize()
@@ -2751,6 +2776,12 @@ def int8_teacher_path(dev, tmp: str, start_path: str, dataset_cls,
     n_q = len(teacher.quantized_paths)
     if n_q != n_conv:
         raise AssertionError(f"the teacher has {n_q} quantized convs")
+    # an int8 teacher keeps the AdvMix iteration eager (no CUDA graph):
+    # every iteration calls each quantized conv's op from the host
+    if dev.type == "cuda" and int8_conv2d.launches != n_q * TRAIN_ITERS:
+        raise AssertionError(
+            f"int8 teacher: {int8_conv2d.launches} int8 GEMMs launched from "
+            f"the host, not {n_q} x {TRAIN_ITERS}: an iteration was replayed")
     (epoch,) = result["history"]
     if len(epoch) != TRAIN_ITERS or not all(
             np.isfinite(m["loss_d"]) and np.isfinite(m["loss_g"])
@@ -2761,7 +2792,8 @@ def int8_teacher_path(dev, tmp: str, start_path: str, dataset_cls,
     log(f"[int8] tools/train.main --advmix TRAIN.INT8_TEACHER True: {n_q} "
         f"teacher convs quantized, {TRAIN_ITERS} iterations of batch 32 + "
         f"validate() in {wall:.2f} s; loss_d / loss_g {losses}; launches "
-        f"{launches}")
+        f"{launches}; int8 GEMMs {int8_conv2d.launches} (eager: every "
+        f"iteration)")
     del result, teacher
     torch.cuda.empty_cache()
     cfg = get_default_config()

@@ -239,9 +239,9 @@ def test_cuda_warp_affine_equals_cpu(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_advmix_step_invariants(cuda, dtype):
-    """Two AdvMix iterations on the card: f32 master weights, two BN
-    updates per iteration, an untouched teacher, finite losses of the
-    right signs."""
+    """Three AdvMix iterations on the card (eager, captured, replayed):
+    f32 master weights, two BN updates per iteration, an untouched
+    teacher, finite losses of the right signs."""
     from advmix_tpu_torch.engine.state import create_advmix_state
     from advmix_tpu_torch.engine.steps import make_advmix_step
     from advmix_tpu_torch.models import get_pose_net
@@ -254,7 +254,7 @@ def test_cuda_advmix_step_invariants(cuda, dtype):
     d0 = [p.detach().clone() for p in state.model_d.parameters()]
     step = make_advmix_step(state, cfg, alpha=0.3, adv_loss_weight=0.7)
     rng = np.random.RandomState(3)
-    for _ in range(2):
+    for _ in range(3):
         batch = dict(
             views=torch.from_numpy(rng.randn(4, 9, 64, 64).astype(
                 np.float32)).to(cuda, dtype),
@@ -270,9 +270,235 @@ def test_cuda_advmix_step_invariants(cuda, dtype):
     assert all(p.dtype == torch.float32 for p in state.model_g.parameters())
     assert any(not torch.equal(a, b) for a, b in
                zip(d0, state.model_d.parameters()))
-    assert int(state.model_d.bn1.num_batches_tracked) == 4
+    assert int(state.model_d.bn1.num_batches_tracked) == 6
+    assert state.step == 3
     for k, v in state.teacher.state_dict().items():
         assert torch.equal(v, teacher0[k])
+
+
+GRAPH_CALLS = (4, 4, 4, 4, 6)  # the batch of each call; the lr changes at 4
+
+
+def _graph_batches(dtype):
+    rng = np.random.RandomState(11)
+    return [dict(views=torch.from_numpy(rng.randn(n, 9, 64, 64)).to(dtype),
+                 target=torch.from_numpy(rng.rand(n, 6, 16, 16)).to(
+                     torch.float64 if dtype == torch.float64
+                     else torch.float32),
+                 target_weight=torch.from_numpy(
+                     (rng.rand(n, 6) > 0.2) * 1.0).to(
+                     torch.float64 if dtype == torch.float64
+                     else torch.float32))
+            for n in GRAPH_CALLS]
+
+
+def _trained_leaves(state) -> dict:
+    """Every parameter, D's BN statistics and Adam's state (once made), on
+    the host."""
+    out = {}
+    for net, m, opt in (("d", state.model_d, state.optimizer_d),
+                        ("g", state.model_g, state.optimizer_g)):
+        for k, p in m.named_parameters():
+            out[f"{net}.{k}"] = p.detach().cpu()
+            out.update({f"{net}.{k}.{s}": v.cpu().double() if s == "step"
+                        else v.cpu() for s, v in opt.state[p].items()})
+        if net == "d":
+            out.update({f"d.{k}": v.detach().cpu()
+                        for k, v in m.named_buffers()})
+    return out
+
+
+def _leaf_kind(key: str) -> tuple:
+    """(net, kind) of a `_trained_leaves` key: a parameter, a BN statistic
+    or one of Adam's state entries."""
+    last = key.rsplit(".", 1)[-1]
+    kind = (last if last in ("exp_avg", "exp_avg_sq", "step")
+            else "stat" if "running_" in key else "param")
+    return key.split(".", 1)[0], kind
+
+
+def _graph_run(cuda, dtype, debug: bool):
+    """Five AdvMix calls from the same weights and batches (the last a new
+    batch size), the learning rate cut before the fourth. Returns the
+    state, each call's metrics and mixing weights (read back at once),
+    the third call's outputs as returned, and the counters' events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from advmix_tpu_torch.engine import optim
+    from advmix_tpu_torch.engine.state import create_advmix_state
+    from advmix_tpu_torch.engine.steps import make_advmix_step
+    from advmix_tpu_torch.models import get_pose_net, he_reinit_convs
+    from advmix_tpu_torch.models.unet import UnetGenerator
+
+    cfg = _tiny_train_cfg()
+    torch.manual_seed(0)  # what the constructors draw (G's conv biases)
+    model, g = get_pose_net(cfg), UnetGenerator(ngf=8)
+    he_reinit_convs(model, torch.Generator().manual_seed(0))
+    he_reinit_convs(g, torch.Generator().manual_seed(1))
+    if dtype == torch.float64:
+        model, g = model.double(), g.double()
+    state = create_advmix_state(cfg, model, g, cuda, dtype)
+    start = {k: v.clone() for k, v in _trained_leaves(state).items()}
+    step = make_advmix_step(state, cfg, alpha=0.3, adv_loss_weight=0.7,
+                            debug=debug)
+    calls, third = [], None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i, batch in enumerate(_graph_batches(dtype)):
+            if i == 3:
+                for opt in (state.optimizer_d, state.optimizer_g):
+                    optim.set_learning_rate(opt, 2e-4)
+            out = step({k: v.to(cuda) for k, v in batch.items()})
+            metrics = out[0] if debug else out
+            if i == 2:
+                third = (metrics, step.last_mix_weights)
+            calls.append(({k: float(v) for k, v in metrics.items()},
+                          step.last_mix_weights.cpu()))
+    return state, start, calls, third, _host_counts(prof)
+
+
+def _host_counts(prof) -> dict:
+    """The step's counters and `advmix.graph_replay` spans on the host (a
+    CUDA profiler also shows a span's range on the device's timeline)."""
+    counts = {}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CPU") and (
+                e.name().startswith("advmix.count.")
+                or e.name() == "advmix.graph_replay"):
+            counts[e.name()] = counts.get(e.name(), 0) + 1
+    return counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_cuda_graphed_advmix_step_matches_eager(cuda, dtype, monkeypatch):
+    """Five calls of the graphed AdvMix step (eager, capture, replay, a
+    capture at a new learning rate, a capture at a new batch size) against
+    a `debug=True` step, which stays eager, from the same weights and
+    batches. float64 (default dtype float64, so that Adam's device step
+    count and bias corrections are float64 as the eager step's are;
+    deterministic cuDNN on both): every parameter, BN statistic and Adam
+    moment within 1e-12 of its tensor's range, or of the median range of
+    its kind where that is larger. bf16: the benchmark's own limits
+    (`portbench/limits/w32-advmix-b32.json`) on the losses of every call,
+    the mixing weights of the first replay and the change of D, G and D's
+    BN statistics. The counters: 1 eager step, 3 captures, 4 replays; the
+    third call's outputs survive the fourth."""
+    import json
+    import os
+
+    from portbench.reference import train as ref_train
+
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic",
+                        dtype == torch.float64)
+    if dtype == torch.float64:
+        default = torch.get_default_dtype()
+        torch.set_default_dtype(torch.float64)
+    try:
+        graphed, start, g_calls, third, counts = _graph_run(cuda, dtype,
+                                                            False)
+        eager, _, e_calls, _, e_counts = _graph_run(cuda, dtype, True)
+    finally:
+        if dtype == torch.float64:
+            torch.set_default_dtype(default)
+
+    assert counts == {"advmix.count.eager_step": 1,
+                      "advmix.count.graph_capture": 3,
+                      "advmix.count.graph_replay": 4,
+                      "advmix.graph_replay": 4}
+    assert e_counts == {"advmix.count.eager_step": 5}
+    assert graphed.step == eager.step == 5
+    metrics3, mix3 = third
+    assert {k: float(v) for k, v in metrics3.items()} == g_calls[2][0]
+    assert torch.equal(mix3.cpu(), g_calls[2][1])  # call 4 left them be
+    got, want = _trained_leaves(graphed), _trained_leaves(eager)
+    assert got.keys() == want.keys()
+    if dtype == torch.float64:
+        spans = {k: float(w.max() - w.min()) for k, w in want.items()
+                 if w.is_floating_point()}
+        median = {kind: ref_train.median([v for k, v in spans.items()
+                                          if _leaf_kind(k) == kind])
+                  for kind in {_leaf_kind(k) for k in spans}}
+        for k, w in want.items():
+            if not w.is_floating_point():
+                assert torch.equal(got[k], w), k
+                continue
+            # a leaf of round-off (the moments of a conv bias in front of
+            # an InstanceNorm, whose gradient is 0) against its kind's
+            # median range
+            scale = max(spans[k], median[_leaf_kind(k)]) \
+                or float(w.abs().max())
+            assert float((got[k] - w).abs().max()) <= 1e-12 * scale, k
+        for (gm, gw), (em, ew) in zip(g_calls, e_calls):
+            for k, v in em.items():
+                assert abs(gm[k] - v) <= 1e-12 * max(abs(v), 1.0), k
+            assert float((gw - ew).abs().max()) <= 1e-12
+        return
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench/limits/w32-advmix-b32.json")) as f:
+        limits = json.load(f)
+    for (gm, gw), (em, ew) in zip(g_calls, e_calls):
+        for key in ("loss_d", "loss_g"):
+            gap = abs(gm[key] - em[key]) / max(abs(em[key]), 1e-12)
+            assert gap <= limits[f"{key}_gap"], (key, gm, em)
+    # G's mix at its first replay (one identical eager update behind it);
+    # later, bf16 rounding in Adam's first, sign-like steps moves G apart
+    assert ref_train.mix_diff(g_calls[1][1], e_calls[1][1]) \
+        <= limits["mix1_diff"]
+    for net, limit in (("d", "change_d_median_gap"),
+                       ("g", "change_g_median_gap")):
+        names = [k for k in want if k.startswith(net + ".")
+                 and k.rsplit(".", 1)[-1] in ("weight", "bias")
+                 and "running_" not in k]
+        moving = ref_train.moving_leaves(
+            {k: want[k + ".exp_avg"] for k in names})
+        gaps = ref_train.leaf_numbers(
+            {k: got[k] - start[k] for k in names},
+            {k: want[k] - start[k] for k in names}, moving)["gap"]
+        assert ref_train.median(list(gaps.values())) <= limits[limit], net
+    bn = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    gaps = ref_train.leaf_numbers({k: got[k] - start[k] for k in bn},
+                                  {k: want[k] - start[k] for k in bn})["gap"]
+    assert ref_train.median(list(gaps.values())) \
+        <= limits["change_bn_median_gap"]
+
+
+@pytest.mark.gpu
+def test_cuda_autotuned_new_batch_size_runs_eagerly_then_captures(
+        cuda, monkeypatch):
+    """Under cuDNN autotuning a batch size the step has not run eagerly
+    runs eagerly once (cuDNN cannot time its algorithms inside a capture),
+    and the next call at that size captures: calls at batch 4, 4, 4, 6, 6,
+    6 go eager, capture, replay, eager, capture, replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from advmix_tpu_torch.engine.state import create_advmix_state
+    from advmix_tpu_torch.engine.steps import make_advmix_step
+    from advmix_tpu_torch.models import get_pose_net
+    from advmix_tpu_torch.models.unet import UnetGenerator
+
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    cfg = _tiny_train_cfg()
+    state = create_advmix_state(cfg, get_pose_net(cfg),
+                                UnetGenerator(ngf=8), cuda, torch.bfloat16)
+    step = make_advmix_step(state, cfg, alpha=0.3, adv_loss_weight=0.7)
+    rng = np.random.RandomState(5)
+    losses = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for n in (4, 4, 4, 6, 6, 6):
+            m = step(dict(
+                views=torch.from_numpy(rng.randn(n, 9, 64, 64)).to(
+                    cuda, torch.bfloat16),
+                target=torch.from_numpy(rng.rand(n, 6, 16, 16)).to(
+                    cuda, torch.float32),
+                target_weight=torch.ones(n, 6, device=cuda)))
+            losses.append(float(m["loss_d"]))
+    assert _host_counts(prof) == {"advmix.count.eager_step": 2,
+                                  "advmix.count.graph_capture": 2,
+                                  "advmix.count.graph_replay": 4,
+                                  "advmix.graph_replay": 4}
+    assert np.isfinite(losses).all() and state.step == 6
 
 
 @pytest.mark.gpu

@@ -181,13 +181,16 @@ def test_profile_cli_top_down_advmix_phases(tmp_path, capsys):
     assert "by phase" in capsys.readouterr().out
     assert np.isfinite(out["metrics"]["loss_d"])
     rows = {r[0]: r[1:] for r in out["phases"]}
+    # on the CPU every AdvMix call is eager, and counts itself so
     assert list(rows) == ["advmix.train_prep", "advmix.advmix_step",
+                          "advmix.count.eager_step",
                           "advmix.generate", "advmix.teacher",
                           "advmix.d_update", "advmix.d_adam",
                           "advmix.g_update", "advmix.g_adam",
                           "advmix.metrics"]
     for name, (calls, host, dev, idle, launches) in rows.items():
-        assert calls == 1.0 and host > 0, name
+        assert calls == 1.0, name
+        assert host > 0 or name.startswith("advmix.count."), name
         assert dev is idle is launches is None, name  # host ms only
     parts = sum(rows[k][1] for k in ("advmix.generate", "advmix.teacher",
                                      "advmix.d_update", "advmix.g_update",
