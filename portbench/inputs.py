@@ -12,6 +12,9 @@ convolution) keep their published N(0, 0.001) start: D's heatmaps start
 small, as after an ImageNet backbone, and G's logits start near zero, so its
 softmax mixes the three views smoothly; a G started at He scale makes its
 softmax nearly one-hot, and rounding then flips which view a pixel takes.
+Any other parameter (a linear layer, a norm's scale, a position table) is
+drawn as ViT and HRFormer start it, so that no weight is left to torch's
+default, which the unseeded global RNG would draw.
 """
 
 from __future__ import annotations
@@ -148,10 +151,16 @@ OUTPUT_LAYERS = ("final_layer", "model.model.3")
 OUTPUT_STD = 0.001
 
 
-def he_init_(model: nn.Module, gen: torch.Generator) -> None:
+TABLE_STD = 0.02
+NORMS = (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._NormBase)
+
+
+def he_init_(model: nn.Module, gen: torch.Generator,
+             rest: torch.Generator | None = None) -> None:
     """He-normal kernels for every convolution but the output layers
     (N(0, 0.001)), drawn in one call; biases 0, BatchNorm scale 1 and
-    shift 0."""
+    shift 0. Then every parameter left (`rest_init_`, from `rest`), so that
+    none keeps torch's default start, which the global RNG draws."""
     convs = [(n, m) for n, m in model.named_modules()
              if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
     dev = convs[0][1].weight.device
@@ -172,6 +181,47 @@ def he_init_(model: nn.Module, gen: torch.Generator) -> None:
             if isinstance(m, nn.BatchNorm2d):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+    done = {id(p) for _, m in convs for p in m.parameters(recurse=False)}
+    done |= {id(p) for m in model.modules() if isinstance(m, nn.BatchNorm2d)
+             for p in m.parameters(recurse=False)}
+    rest_init_(model, done, rest)
+
+
+def rest_init_(model: nn.Module, done: set, gen: torch.Generator | None
+               ) -> None:
+    """The parameters that `he_init_` did not set (ids not in `done`), as
+    ViT and HRFormer start them: linear weights and every other free
+    parameter (position tables) truncated N(0, 0.02) at two standard
+    deviations, drawn in one call in `named_parameters` order; linear
+    biases 0; LayerNorm, GroupNorm and other norms' scales 1 and shifts 0.
+    Draws nothing where nothing is left (HRNet, ResNet, the UNet)."""
+    fixed = {}  # id -> value
+    for m in model.modules():
+        own = dict(m.named_parameters(recurse=False))
+        if isinstance(m, nn.Linear) and own.get("bias") is not None:
+            fixed[id(m.bias)] = 0.0
+        elif isinstance(m, NORMS):
+            fixed.update({id(p): 1.0 if k == "weight" else 0.0
+                          for k, p in own.items()})
+    drawn = [p for _, p in model.named_parameters()
+             if id(p) not in done and id(p) not in fixed]
+    with torch.no_grad():
+        for p in model.parameters():
+            if id(p) not in done and id(p) in fixed:
+                p.fill_(fixed[id(p)])
+        if not drawn:
+            return
+        if gen is None:
+            raise ValueError("parameters beyond convolutions and BatchNorm "
+                             "need a generator of their own")
+        flat = torch.empty(sum(p.numel() for p in drawn),
+                           device=drawn[0].device)
+        nn.init.trunc_normal_(flat, std=TABLE_STD, a=-2 * TABLE_STD,
+                              b=2 * TABLE_STD, generator=gen)
+        o = 0
+        for p in drawn:
+            p.copy_(flat[o:o + p.numel()].view_as(p))
+            o += p.numel()
 
 
 def calibrate_bn_(model: nn.Module, images: torch.Tensor) -> None:

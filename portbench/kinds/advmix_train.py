@@ -205,7 +205,8 @@ class CellRun:
             models.set_quant(d, quant)
             models.set_quant(g, quant)
             ref = train.AdvMixReference(d, g, float(cfg.TRAIN.LR), ALPHA,
-                                        ADV_WEIGHT)
+                                        ADV_WEIGHT, str(cfg.TRAIN.OPTIMIZER),
+                                        float(cfg.TRAIN.WD))
             b0 = {k: v.detach().clone() for k, v in _bn_buffers(d).items()}
             gen = torch.Generator().manual_seed(
                 inputs.sub_seed(self.ctx.seed, 3))

@@ -29,7 +29,8 @@ def seeded_weights(model_cfg: dict, image_size, seed: int, device,
     (through the f32 reference, TF32 off)."""
     w, h = image_size
     d = reference_pose(model_cfg, device)
-    inputs.he_init_(d, inputs.device_gen(seed, 4, device))
+    inputs.he_init_(d, inputs.device_gen(seed, 4, device),
+                    inputs.device_gen(seed, 7, device))
     calib = inputs.normalized(inputs.smooth_images(
         16, h, w, inputs.device_gen(seed, 6, device), device))
     with numerics.exact_f32():
@@ -39,7 +40,8 @@ def seeded_weights(model_cfg: dict, image_size, seed: int, device,
     if with_generator:
         with torch.device(device):
             g = models.Unet()
-        inputs.he_init_(g, inputs.device_gen(seed, 5, device))
+        inputs.he_init_(g, inputs.device_gen(seed, 5, device),
+                        inputs.device_gen(seed, 8, device))
         out["g"] = {k: v.detach().cpu() for k, v in g.state_dict().items()}
     return out
 
@@ -47,9 +49,16 @@ def seeded_weights(model_cfg: dict, image_size, seed: int, device,
 def port_pose(cfg, state: dict, device) -> torch.nn.Module:
     """The program's pose network of cfg.MODEL.NAME, made on the meta
     device (no host initialization) and given `state`."""
-    mod = importlib.import_module(f"advmix_tpu_torch.models.{cfg.MODEL.NAME}")
+    name = cfg.MODEL.NAME
+    mod = importlib.import_module(f"advmix_tpu_torch.models.{name}")
     with torch.device("meta"):
         m = mod.get_pose_net(cfg)
+    prog, ref = set(m.state_dict()), set(state)
+    if prog != ref:
+        raise KeyError(
+            f"the reference of {name} and the program's get_pose_net name "
+            f"their state differently: reference only "
+            f"{sorted(ref - prog)[:8]}, program only {sorted(prog - ref)[:8]}")
     m = m.to_empty(device=device)
     m.load_state_dict(state, strict=True)
     return m

@@ -12,9 +12,16 @@ one state dict loads into the program's model and into these alike.
 weight and output (`numerics.fp8_quant`): the lower-precision control of the
 output check, whose activations are all float8 as the program's are all
 bfloat16. None computes in float32.
+
+Another architecture joins by a file of its own: `MODEL.NAME` `x` is
+`portbench/reference/x.py` with `pose_net(extra, num_joints)` (see
+`pose_net` below for what it must hold to).
 """
 
 from __future__ import annotations
+
+import ast
+import importlib.util
 
 import torch
 import torch.nn.functional as F
@@ -292,20 +299,82 @@ class Unet(nn.Module):
         return self.model(x)
 
 
+# the only top-level modules a file of `portbench/reference/` may import:
+# plain libraries, nothing of the program and nothing of JAX
+PLAIN_IMPORTS = frozenset({"__future__", "ast", "collections", "contextlib",
+                           "copy", "glob", "importlib", "math", "os",
+                           "numpy", "scipy", "torch", "cv2"})
+BUILT_IN = {"pose_hrnet": HRNet, "pose_resnet": PoseResNet}
+
+
+def imports_of(path: str) -> set:
+    """The top-level names of the absolute imports in the file `path`, and
+    of `import_module` calls on a name that starts with a constant
+    (relative imports stay inside the file's package)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", None) == "import_module" and node.args:
+            arg = node.args[0]
+            if isinstance(arg, ast.JoinedStr) and arg.values:
+                arg = arg.values[0]
+            if isinstance(arg, ast.Constant):
+                names.add(str(arg.value).split(".")[0])
+    return names
+
+
+def architecture(name: str):
+    """The module `portbench/reference/<name>.py` of an architecture that is
+    not built in, held to its contract: it exists, imports only
+    `PLAIN_IMPORTS`, and has `pose_net(extra, num_joints)`."""
+    if not name.isidentifier():
+        raise KeyError(f"MODEL.NAME {name!r} is no module name")
+    full = f"{__package__}.{name}"
+    spec = importlib.util.find_spec(full)
+    if spec is None or spec.origin is None:
+        raise KeyError(f"no reference for MODEL.NAME {name!r}: add "
+                       f"portbench/reference/{name}.py with "
+                       "pose_net(extra, num_joints)")
+    # read before the module runs, so that nothing else is ever loaded
+    bad = imports_of(spec.origin) - PLAIN_IMPORTS
+    if bad:
+        raise ImportError(f"{spec.origin} imports {sorted(bad)}: a reference "
+                          f"may import only {sorted(PLAIN_IMPORTS)}")
+    mod = importlib.import_module(full)
+    if not callable(getattr(mod, "pose_net", None)):
+        raise TypeError(f"{spec.origin} has no pose_net(extra, num_joints)")
+    return mod
+
+
 def pose_net(model_cfg: dict) -> nn.Module:
-    """The pose network that a configuration file's "model" block names."""
+    """The pose network that a configuration file's "model" block names:
+    a built-in, or `architecture(NAME).pose_net(EXTRA, NUM_JOINTS)`, whose
+    head must be the convolution `final_layer` (the output layer that
+    `inputs.he_init_` starts small). Its state dict's names must be the
+    program's `get_pose_net(cfg)`'s (`kinds.common.port_pose` checks)."""
     extra = model_cfg["EXTRA"]
     joints = model_cfg["NUM_JOINTS"]
-    if model_cfg["NAME"] == "pose_hrnet":
-        return HRNet(extra, joints)
-    if model_cfg["NAME"] == "pose_resnet":
-        return PoseResNet(extra, joints)
-    raise KeyError(f"no reference for {model_cfg['NAME']}")
+    name = model_cfg["NAME"]
+    if name in BUILT_IN:
+        return BUILT_IN[name](extra, joints)
+    net = architecture(name).pose_net(extra, joints)
+    if not isinstance(getattr(net, "final_layer", None), nn.Conv2d):
+        raise TypeError(f"portbench/reference/{name}.py: the head must be a "
+                        "convolution named final_layer")
+    return net
 
 
 def set_quant(model: nn.Module, quant) -> nn.Module:
-    """Route every convolution of `model` through `quant` (None: f32)."""
+    """Route every module of `model` that has a `quant` attribute (the
+    convolutions here; a file of another architecture may add its own)
+    through `quant` (None: f32)."""
     for m in model.modules():
-        if isinstance(m, (Conv, Deconv)):
+        if hasattr(m, "quant"):
             m.quant = quant
     return model

@@ -6,7 +6,8 @@ trains on the detached mix against the ground-truth heatmaps (weight
 1 - alpha) and against a frozen teacher's heatmaps of the clean view
 (weight alpha); then G trains to raise D's loss on the same mix, through
 D as just updated and again in train mode, so D's BatchNorm statistics
-update twice per iteration. Both optimizers are Adam. Targets are the
+update twice per iteration. Both optimizers are the configuration's
+TRAIN.OPTIMIZER, as the program builds them (`optimizer`). Targets are the
 unnormalized Gaussians of `JointsDataset.generate_target` and the loss is
 `JointsMSELoss` with the repository's default criterion, SmoothL1.
 """
@@ -55,15 +56,29 @@ def mix(logits, views, k=3):
     return sum(views[:, 3 * i:3 * i + 3] * w[:, i:i + 1] for i in range(k))
 
 
+def optimizer(name: str, params, lr: float, wd: float):
+    """TRAIN.OPTIMIZER `name` over `params`: "adam", Adam without weight
+    decay (the program's "adam"); "adamw", AdamW with weight decay `wd`
+    (TRAIN.WD)."""
+    if name == "adam":
+        return torch.optim.Adam(params, lr=lr, foreach=False)
+    if name == "adamw":
+        return torch.optim.AdamW(params, lr=lr, weight_decay=wd,
+                                 foreach=False)
+    raise ValueError(f"the reference has no optimizer {name!r}: "
+                     "adam or adamw")
+
+
 class AdvMixReference:
     """D, G and the teacher (a frozen copy of D as handed in, eval mode),
-    each an f32 reference module, and their Adam optimizers."""
+    each an f32 reference module, and their optimizers (`optimizer`)."""
 
-    def __init__(self, d, g, lr, alpha=0.1, adv_weight=1.0):
+    def __init__(self, d, g, lr, alpha=0.1, adv_weight=1.0, opt="adam",
+                 wd=0.0):
         self.d, self.g = d, g
         self.teacher = copy.deepcopy(d).eval().requires_grad_(False)
-        self.opt_d = torch.optim.Adam(d.parameters(), lr=lr, foreach=False)
-        self.opt_g = torch.optim.Adam(g.parameters(), lr=lr, foreach=False)
+        self.opt_d = optimizer(opt, d.parameters(), lr, wd)
+        self.opt_g = optimizer(opt, g.parameters(), lr, wd)
         self.alpha, self.adv = alpha, adv_weight
         self.first_grads = None
         self.first_mix_weights = None

@@ -4,53 +4,33 @@ compared whole: `advmix_tpu_torch` begins with `advmix_tpu`."""
 
 from __future__ import annotations
 
-import ast
 import os
 import sys
 
 import pytest
 
 from portbench import core
+from portbench.reference import models
 
 FILES = sorted(os.path.join(d, f) for d, _, fs in os.walk(core.HERE)
                for f in fs if f.endswith(".py"))
 
 
-def top_level_imports(path: str) -> set:
-    with open(path) as f:
-        tree = ast.parse(f.read())
-    names = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names.add(node.module.split(".")[0])
-        elif isinstance(node, ast.Call) and getattr(
-                node.func, "attr", None) == "import_module":
-            arg = node.args[0] if node.args else None
-            if isinstance(arg, ast.Constant):
-                names.add(arg.value.split(".")[0])
-            elif isinstance(arg, ast.JoinedStr) and arg.values and \
-                    isinstance(arg.values[0], ast.Constant):
-                names.add(arg.values[0].value.split(".")[0])
-    return names
-
-
 @pytest.mark.parametrize("path", FILES,
                          ids=lambda p: os.path.relpath(p, core.ROOT))
 def test_no_jax_anywhere(path):
-    assert not top_level_imports(path) & set(core.FORBIDDEN)
+    assert not models.imports_of(path) & set(core.FORBIDDEN)
 
 
 @pytest.mark.parametrize(
     "path", [f for f in FILES if os.sep + "reference" + os.sep in f],
     ids=lambda p: os.path.relpath(p, core.ROOT))
 def test_reference_is_plain(path):
-    found = top_level_imports(path)
+    found = models.imports_of(path)
     assert "advmix_tpu_torch" not in found
-    assert found <= {"__future__", "collections", "contextlib", "copy",
-                     "math", "os", "glob", "numpy", "scipy", "torch",
-                     "cv2"}
+    assert found <= models.PLAIN_IMPORTS
+    assert not models.PLAIN_IMPORTS & (set(core.FORBIDDEN)
+                                       | {"advmix_tpu_torch", "portbench"})
 
 
 def test_forbidden_names_are_whole(monkeypatch):

@@ -6,8 +6,14 @@ makes into the program: `pb.iter` around one iteration, and inside it
 `pb.to_device`, `pb.prep`, `pb.step` and `pb.sync`. A device operation is
 charged to the span in which the host launched it, found through the
 launch's correlation id; what the program launches from a thread of its own
-has no launching span and is charged to no span. Nothing here reads the
-program's own spans or counters: those are a later change.
+has no launching span and is charged to no span.
+
+The program's own host events (`advmix_tpu_torch/utils/profiling.span` and
+`count`: names that start with `advmix.`) that start inside a traced
+`pb.iter` are kept apart: its spans in `Trace.program_spans`, its counters
+in `Trace.counts`. They never enter `Trace.spans`, so a device operation is
+still charged to a benchmark span and an idle gap still labelled by one;
+`Trace.program_s` reads a program span's device and idle time.
 """
 
 from __future__ import annotations
@@ -31,6 +37,11 @@ FAMILIES = (("batch_norm", "batch norm"), ("batchnorm", "batch norm"),
             ("multi_tensor", "optimizer (foreach)"),
             ("upsample", "upsample"), ("reduce", "reduce"),
             ("elementwise", "elementwise"))
+
+# the program's span names and, among them, its counters' (one zero-length
+# span an event), as `advmix_tpu_torch/utils/profiling` writes them
+PROGRAM = "advmix."
+PROGRAM_COUNT = "advmix.count."
 
 _LAUNCH_KINDS = ("cuda_runtime", "cuda_driver")
 _DEVICE_KINDS = ("kernel", "gpu_memcpy", "gpu_memset", "concurrent_kernel")
@@ -80,6 +91,17 @@ class DeviceOp:
     start: int  # ns
     end: int
     span: str | None  # the benchmark span the host launched it from
+    launch: int | None = None  # host time of the launch; None: not found
+
+
+def _union(intervals) -> list:
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
 
 
 @dataclass
@@ -92,6 +114,10 @@ class Trace:
     iter_s: list = field(default_factory=list)  # untraced iteration seconds
     flops_per_iter: float | None = None  # filled in lazily by the cell
     extra: dict = field(default_factory=dict)  # kind-specific numbers
+    # the program's spans, `advmix.count.` events left out: name ->
+    # [(start, end)]; and its counters: event name -> events
+    program_spans: dict = field(default_factory=dict)
+    counts: dict = field(default_factory=dict)
 
     @property
     def n_iters(self) -> int:
@@ -135,6 +161,38 @@ class Trace:
     def host_s_in(self, *names) -> float:
         return sum(e - s for n in names for s, e in self.spans.get(n, ())) \
             * 1e-9
+
+    def program_s(self, name: str) -> tuple:
+        """(device seconds, idle seconds) of the program span `name`, its
+        calls read as one union of intervals: the device time of the
+        operations launched while it was open (a parent's holds its
+        children's), and the part of its host time in which no device
+        operation ran."""
+        ivs = _union(self.program_spans.get(name, ()))
+        starts = [s for s, _ in ivs]
+
+        def inside(t):
+            k = bisect.bisect_right(starts, t) - 1
+            return k >= 0 and t < ivs[k][1]
+
+        device = sum(o.end - o.start for o in self.ops
+                     if o.launch is not None and inside(o.launch))
+        busy = _union((o.start, o.end) for o in self.ops)
+        b_starts = [a for a, _ in busy]
+        cum = [0]
+        for a, b in busy:
+            cum.append(cum[-1] + b - a)
+
+        def covered(s, e):
+            i = bisect.bisect_right(b_starts, s) - 1  # the last to start <= s
+            j = bisect.bisect_left(b_starts, e)  # i+1 .. j-1 start in (s, e)
+            total = max(0, min(busy[i][1], e) - s) if i >= 0 else 0
+            if j > i + 1:
+                total += cum[j] - cum[i + 1] - max(0, busy[j - 1][1] - e)
+            return total
+
+        idle = sum((e - s) - covered(s, e) for s, e in ivs)
+        return device * 1e-9, idle * 1e-9
 
     def gaps(self):
         """Idle gaps of the device inside the window: [(start, end)]."""
@@ -212,11 +270,15 @@ class Profiler:
         launches = []  # (correlation id, host start)
         host_ops = {}  # cpu op correlation id -> start
         device = []
+        program = []  # (name, start, end) of the program's host events
         kinds: dict = {}
         host_names = frozenset(e.name() for e in events if _on_host(e))
         for e in events:
             kind = _kind(e, host_names)
             kinds[kind] = kinds.get(kind, 0) + 1
+            if e.name().startswith(PROGRAM) and _on_host(e):
+                program.append((e.name(), e.start_ns(),
+                                e.start_ns() + e.duration_ns()))
             if kind == "user_annotation" and e.name().startswith("pb."):
                 iv = (e.start_ns(), e.start_ns() + e.duration_ns())
                 if e.name() == "pb.iter":
@@ -255,10 +317,26 @@ class Profiler:
                 t = host_ops.get(e.linked_correlation_id())
             start = e.start_ns()
             ops.append(DeviceOp(e.name(), _kind(e, host_names), start,
-                                start + e.duration_ns(), span_of(t)))
+                                start + e.duration_ns(), span_of(t), t))
         ops.sort(key=lambda o: o.start)
+        it_starts = [s for s, _ in iters]
+
+        def traced(t):
+            k = bisect.bisect_right(it_starts, t) - 1
+            return k >= 0 and t < iters[k][1]
+
+        program_spans, counts = {}, {}
+        for name, s, e in program:
+            if not traced(s):
+                continue
+            if name.startswith(PROGRAM_COUNT):
+                counts[name] = counts.get(name, 0) + 1
+            else:
+                program_spans.setdefault(name, []).append((s, e))
         print(f"[portbench] trace: {len(iters)} iterations, {len(ops)} device"
               f" operations, {sum(o.span is not None for o in ops)} charged "
-              f"to a span; events by kind {kinds}", file=sys.stderr,
-              flush=True)
-        return Trace(iters=iters, spans=spans, ops=ops)
+              f"to a span; events by kind {kinds}; program spans "
+              f"{sum(map(len, program_spans.values()))}, counts {counts}",
+              file=sys.stderr, flush=True)
+        return Trace(iters=iters, spans=spans, ops=ops,
+                     program_spans=program_spans, counts=counts)
