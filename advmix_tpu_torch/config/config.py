@@ -6,7 +6,11 @@ loads unchanged and both packages read identical config trees. Keys that
 only shape the JAX program (`MODEL.EXTRA.USE_SCAN`, `MODEL.EXTRA.REMAT`,
 `GPUS`) are accepted and ignored here; `TRAIN.CROSS_REPLICA_BN` makes the
 train steps' BatchNorm statistics cross-replica when there are several
-ranks (`models/layers.cross_replica_bn`).
+ranks (`models/layers.cross_replica_bn`). The port alone reads
+`TRAIN.OPTIMIZER: adamw` (decoupled weight decay TRAIN.WD) and the HRFormer
+keys of the free-form MODEL.EXTRA (`STAGE1.NUM_BLOCKS`, each stage's
+`NUM_HEADS`, `WINDOW_SIZES`, `MLP_RATIOS`, and `DROP_PATH_RATE`;
+`models/pose_hrformer.py`); the defaults stay the JAX package's.
 """
 
 from __future__ import annotations
@@ -207,7 +211,7 @@ def get_default_config() -> ConfigNode:
     c.TRAIN.LR_FACTOR = 0.1
     c.TRAIN.LR_STEP = [90, 110]
     c.TRAIN.LR = 0.001
-    c.TRAIN.OPTIMIZER = "adam"
+    c.TRAIN.OPTIMIZER = "adam"  # sgd | adam | adamw (the port)
     c.TRAIN.MOMENTUM = 0.9
     c.TRAIN.WD = 0.0001
     c.TRAIN.NESTEROV = False

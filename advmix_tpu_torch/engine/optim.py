@@ -1,7 +1,8 @@
 """Optimizers and the learning-rate schedule.
 
 Port of `advmix_tpu/engine/optim.py` (reference `lib/utils/utils.py:78-94`:
-SGD with momentum, weight decay and Nesterov, or plain Adam at TRAIN.LR; and
+SGD with momentum, weight decay and Nesterov, or plain Adam at TRAIN.LR;
+HRFormer's AdamW, decoupled weight decay TRAIN.WD, for `adamw`; and
 the per-epoch MultiStepLR of `tools/train.py:272-281`, factor
 TRAIN.LR_FACTOR at the epochs TRAIN.LR_STEP). The host writes the rate into
 the optimizer's `param_groups` once per epoch, so a resume recomputes it
@@ -42,6 +43,10 @@ def get_optimizer(cfg, params) -> torch.optim.Optimizer:
             nesterov=bool(cfg.TRAIN.NESTEROV) and momentum > 0)
     if cfg.TRAIN.OPTIMIZER == "adam":
         return torch.optim.Adam(params, lr=cfg.TRAIN.LR)
+    if cfg.TRAIN.OPTIMIZER == "adamw":
+        # capturable as Adam is (engine/steps.make_capturable_)
+        return torch.optim.AdamW(params, lr=cfg.TRAIN.LR,
+                                 weight_decay=cfg.TRAIN.WD)
     raise ValueError(f"unknown optimizer {cfg.TRAIN.OPTIMIZER}")
 
 

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import higher_hrnet, pose_hrnet, pose_resnet
+from . import higher_hrnet, pose_hrformer, pose_hrnet, pose_resnet
 from .convert import jax_to_torch_state_dict, jax_unet_to_torch_state_dict
 from .unet import UnetGenerator, get_generator  # noqa: F401
 
@@ -21,13 +21,21 @@ _REGISTRY = {
     "pose_resnet": pose_resnet.get_pose_net,
     "pose_hrnet": pose_hrnet.get_pose_net,
     "pose_higher_hrnet": higher_hrnet.get_pose_net,
+    "pose_hrformer": pose_hrformer.get_pose_net,
 }
+
+TABLE_STD = 0.02  # linears and bias tables: truncated N(0, 0.02) at 2 std
 
 
 def get_pose_net(cfg) -> nn.Module:
     """An f32 model on the CPU, initialized as the reference does
     (`lib/models/pose_hrnet.py:462`): convs ~ N(0, 0.001), biases 0, BN
-    scale 1, shift 0 (the draws come from a seeded generator)."""
+    scale 1, shift 0; then, as HRFormer and ViT start them, linear weights
+    and every other free parameter (the attention's bias tables) truncated
+    N(0, 0.02) at two standard deviations, linear biases 0, LayerNorm
+    scale 1 and shift 0. All draws come from one seeded generator, the
+    convolutions' first, so a model of convolutions alone draws as
+    before."""
     name = cfg.MODEL.NAME
     if name not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; available: {list(_REGISTRY)}")
@@ -39,7 +47,29 @@ def get_pose_net(cfg) -> nn.Module:
                 m.weight.normal_(0.0, 0.001, generator=gen)
                 if m.bias is not None:
                     m.bias.zero_()
+    _init_rest_(model, gen)
     return model
+
+
+def _init_rest_(model: nn.Module, gen: torch.Generator) -> None:
+    """Every parameter not in a convolution or a norm, in parameter order:
+    linear weights and free tables ~ truncated N(0, TABLE_STD); linear
+    biases 0."""
+    skip = set()
+    for m in model.modules():
+        own = list(m.parameters(recurse=False))
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.LayerNorm,
+                          nn.modules.batchnorm._NormBase)):
+            skip.update(map(id, own))
+        elif isinstance(m, nn.Linear) and m.bias is not None:
+            skip.add(id(m.bias))
+            with torch.no_grad():
+                m.bias.zero_()
+    with torch.no_grad():
+        for p in model.parameters():
+            if id(p) not in skip:
+                nn.init.trunc_normal_(p, std=TABLE_STD, a=-2 * TABLE_STD,
+                                      b=2 * TABLE_STD, generator=gen)
 
 
 def he_reinit_convs(model: nn.Module, generator: torch.Generator) -> None:

@@ -43,6 +43,12 @@ class InvVar(ctypes.Structure):
 SIGNATURES = {
     "advmix_decode_heatmaps": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "advmix_oks_matrix": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # qkv, bias, table, out, lse; B, H, W, C, heads, top, left, rows and
+    # columns of windows; scale, dtype, stream
+    "advmix_window_attn_fwd": [_P] * 5 + [_I] * 9 + [_F, _I, _P],
+    # grad_out, qkv, bias, table, lse, dqkv, partial, dtable, dbias; the
+    # geometry as above; scale, dtype, groups, stream
+    "advmix_window_attn_bwd": [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P],
     # csrc/timing.cu: launched by ops/cuda/timing.py only
     "advmix_empty_launch": [_P],
     "advmix_expf_probe": [_P, _I, _I, _I, _P],

@@ -526,6 +526,103 @@ def decode_phase(dev, rng, flush) -> dict:
         first_design_ms=times["cold L2", "scalar"])
 
 
+# HRFormer-B's window-attention calls at batch 32: (H, W, C, heads) of its
+# four branches at 256x192
+WINDOW_ATTN_SHAPES = ((64, 48, 78, 2), (32, 24, 156, 4), (16, 12, 312, 8),
+                      (8, 6, 624, 16))
+
+
+def window_attn_inputs(dev, b, h, w, c, heads, dtype=torch.bfloat16,
+                       seed=0):
+    """Seeded (qkv, bias, table, grad_out) at the block's scales: qkv and
+    the output's gradient N(0, 1), the bias N(0, 0.5), the table
+    N(0, 0.5)."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((b, h, w, 3 * c), generator=g).to(dev, dtype)
+    bias = (0.5 * torch.randn(3 * c, generator=g)).to(dev)
+    table = (0.5 * torch.randn(169, heads, generator=g)).to(dev)
+    dout = torch.randn((b, h, w, c), generator=g).to(dev, dtype)
+    return qkv, bias, table, dout
+
+
+def window_attn_bytes(b, h, w, c, heads, elem=2) -> tuple:
+    """Least HBM bytes of one forward and one backward call
+    (`portbench/kinds/advmix_train_attn.py` counts an iteration the same
+    way)."""
+    t = b * h * w
+    return 4 * t * c * elem, 7 * t * c * elem + 4 * t * heads
+
+
+def window_attn_phase(dev, flush) -> dict:
+    """The window-attention kernels against their plain versions at
+    HRFormer-B's four branch shapes (batch 32, bf16), then their times in
+    turns with the plain versions' and, as the yardstick only,
+    `scaled_dot_product_attention` with the bias as a float mask on the
+    already partitioned windows (`library_ms`; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from advmix_tpu_torch.ops.cuda import window_attention as wa
+
+    ops = torch.ops.advmix_tpu_torch
+    rows = []
+    for (h, w, c, heads) in WINDOW_ATTN_SHAPES:
+        b = 32
+        qkv, bias, table, dout = window_attn_inputs(dev, b, h, w, c, heads)
+        before = wa.window_attention.launches
+        out, lse = ops.window_attn(qkv, bias, table, heads, 7)
+        dq, db, dt = ops.window_attn_backward(dout, qkv, bias, table, lse,
+                                              heads, 7)
+        torch.cuda.synchronize()
+        if wa.window_attention.launches != before + 3:
+            raise AssertionError("window_attn: the launches were not counted")
+        po, pl = wa.window_attention_plain(qkv, bias, table, heads, 7)
+        pq, pb, pt = wa.window_attention_plain_backward(dout, qkv, bias,
+                                                        table, heads, 7)
+        err = {"out": float((out.float() - po.float()).abs().max()
+                            / po.float().abs().max()),
+               "dqkv": float((dq.float() - pq.float()).abs().max()
+                             / pq.float().abs().max()),
+               "dbias": float((db - pb).abs().max() / pb.abs().max()),
+               "dtable": float((dt - pt).abs().max() / pt.abs().max())}
+        for k, v in err.items():
+            if not v < 2e-2:
+                raise AssertionError(f"window_attn {(b, h, w, c, heads)} "
+                                     f"{k}: max error {v} of the range")
+        fb, bb = window_attn_bytes(b, h, w, c, heads)
+        nh, nw = wa.num_windows(h, w, 7)
+        d = c // heads
+        qw = torch.randn((b * nh * nw, heads, 49, d), device=dev,
+                         dtype=torch.bfloat16)
+        mask = table[wa.relative_position_index(7).to(dev).reshape(-1)].view(
+            49, 49, heads).permute(2, 0, 1).to(torch.bfloat16)
+        fns = {
+            "fwd": lambda: ops.window_attn(qkv, bias, table, heads, 7),
+            "bwd": lambda: ops.window_attn_backward(dout, qkv, bias, table,
+                                                    lse, heads, 7),
+            "plain fwd": lambda: wa.window_attention_plain(qkv, bias, table,
+                                                           heads, 7),
+            "plain bwd": lambda: wa.window_attention_plain_backward(
+                dout, qkv, bias, table, heads, 7),
+            "library fwd": lambda: F.scaled_dot_product_attention(
+                qw, qw, qw, attn_mask=mask)}
+        t = {k: mean(v) for k, v in in_turns(fns, flush, iters=10).items()}
+        row = dict(shape=(b, h, w, c, heads), windows=b * nh * nw,
+                   fwd_ms=t["fwd"], bwd_ms=t["bwd"],
+                   fwd_bound_ms=fb / 3.35e9, bwd_bound_ms=bb / 3.35e9,
+                   plain_fwd_ms=t["plain fwd"], plain_bwd_ms=t["plain bwd"],
+                   library_fwd_ms=t["library fwd"], max_rel_err=err)
+        log(f"[kernels] window_attn {row['shape']}: fwd {t['fwd']:.4f} ms "
+            f"(bound {row['fwd_bound_ms']:.4f}, "
+            f"{100 * row['fwd_bound_ms'] / t['fwd']:.1f}%), bwd "
+            f"{t['bwd']:.4f} ms (bound {row['bwd_bound_ms']:.4f}, "
+            f"{100 * row['bwd_bound_ms'] / t['bwd']:.1f}%); plain "
+            f"{t['plain fwd']:.4f} / {t['plain bwd']:.4f} ms; SDPA with a "
+            f"float mask on partitioned windows {t['library fwd']:.4f} ms; "
+            f"errors {err}")
+        rows.append(row)
+    return {"window_attn": rows}
+
+
 def oks_bounds(m: int, p: int, j: int = 17):
     """(bound for all P x P entries, bound for the P(P+1)/2 entries the
     symmetric matrix needs), each (ms, "bytes" or "operations"). Every
@@ -4112,9 +4209,32 @@ def synthetic_coco_class():
     return SyntheticCropCOCO
 
 
+def window_attn_main() -> None:
+    """`python chip_smoke.py window_attn`: build the kernels, then the
+    window-attention phase alone, its rows as one JSON line."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    from advmix_tpu_torch.ops.cuda import build as kbuild
+
+    dev = torch.device("cuda")
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], check=True,
+                       capture_output=True, text=True).stdout.strip())
+    res = kbuild.build(force=True)
+    for line in res["log"].splitlines():
+        if "window_attn" in line or "registers" in line or "spill" in line:
+            log(f"[build] {line.strip()}")
+    flush = Flush(torch.zeros(128 << 20, dtype=torch.uint8, device=dev))
+    print(json.dumps(window_attn_phase(dev, flush)), flush=True)
+
+
 def main(argv=()) -> None:
+    if list(argv) == ["window_attn"]:
+        return window_attn_main()
     if argv:
-        raise SystemExit(f"chip_smoke.py takes no arguments, not {argv}")
+        raise SystemExit(f"chip_smoke.py takes no arguments but "
+                         f"window_attn, not {argv}")
     t_start = time.perf_counter()
     # ---- 1. card ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4168,6 +4288,8 @@ def main(argv=()) -> None:
     yardsticks(dev, flush)
     report = {"decode_heatmaps": decode_phase(dev, rng, flush)}
     laps("yardsticks and decode")
+    report.update(window_attn_phase(dev, flush))
+    laps("window attention")
     # the full path's shapes (phase 4's data): 47 images of 2..20 people
     # -> M=47 images padded to P=32, and one image of N=130 people
     n_img, n_big = 47, 130

@@ -22,7 +22,14 @@ to its CPU route, a float64 convolution of the codes; an exported program
 launches the decode kernel once per call, and a server answers one input
 twice with the same bits where autotuning in a fresh thread does not. Two
 ranks on the card(s) take the float64 AdvMix step of one rank on their
-halves of its batch, within 1e-9 of the update's range.
+halves of its batch, within 1e-9 of the update's range. Window attention
+(`csrc/window_attn.cu`) against its plain version on the card: in f32 the
+output and every gradient within 1e-5 of their range (the same f32
+arithmetic summed in another order, and `expf` against torch's `exp`); in
+bf16 within 1e-2 of the range (both compute in f32 from the same bf16
+inputs, but each rounds its bf16 outputs, and bf16 holds 8 bits: 2^-8 of a
+value); the backward gives the same bits twice (no atomics), and a model
+block's attention goes through the kernels forward and backward.
 """
 
 import numpy as np
@@ -759,3 +766,89 @@ def test_cuda_two_ranks_match_one_rank_float64(cuda, tmp_path):
     torch.save(model.state_dict(), str(tmp_path / "d.pth"))
     gaps = launch(f64_two_vs_one, dist_devices(), cfg, str(tmp_path / "d.pth"))
     assert gaps["d"] < 1e-9 and gaps["g"] < 1e-9, gaps
+
+
+# (B, H, W, C, heads): HRFormer-B's branch 1 and branch 4 at batch 32, and
+# small maps that leave most of a window padded, at head dims 8 to 40
+WINDOW_ATTN_CASES = [(32, 64, 48, 78, 2), (32, 8, 6, 624, 16),
+                     (3, 9, 11, 24, 3), (2, 5, 3, 96, 3), (1, 14, 7, 64, 2)]
+
+
+def _window_attn_gaps(cuda, shape, dtype):
+    from advmix_tpu_torch.ops.cuda import window_attention as wa
+    from chip_smoke import window_attn_inputs
+
+    b, h, w, c, heads = shape
+    qkv, bias, table, dout = window_attn_inputs(cuda, b, h, w, c, heads,
+                                                dtype, seed=sum(shape))
+    ops = torch.ops.advmix_tpu_torch
+    before = wa.window_attention.launches
+    out, lse = ops.window_attn(qkv, bias, table, heads, 7)
+    grads = ops.window_attn_backward(dout, qkv, bias, table, lse, heads, 7)
+    again = ops.window_attn_backward(dout, qkv, bias, table, lse, heads, 7)
+    torch.cuda.synchronize()
+    assert wa.window_attention.launches == before + 5
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    po, pl = wa.window_attention_plain(qkv, bias, table, heads, 7)
+    plain = wa.window_attention_plain_backward(dout, qkv, bias, table, heads,
+                                               7)
+
+    def gap(x, y):
+        y = y.float()
+        return float((x.float() - y).abs().max() / y.abs().max())
+
+    real = torch.isfinite(pl)  # every query's log-sum the kernel wrote
+    nh, nw = wa.num_windows(h, w, 7)
+    top, _, left, _ = wa.centre_pad(h, w, 7)
+    rows = torch.zeros((nh * 7, nw * 7), dtype=torch.bool, device=cuda)
+    rows[top:top + h, left:left + w] = True
+    rows = rows.view(nh, 7, nw, 7).permute(0, 2, 1, 3).reshape(-1, 49)
+    real = real & rows.repeat(b, 1)[:, None, :]
+    return {"out": gap(out, po), "lse": gap(lse[real], pl[real]),
+            "dqkv": gap(grads[0], plain[0]), "dbias": gap(grads[1], plain[1]),
+            "dtable": gap(grads[2], plain[2])}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WINDOW_ATTN_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_cuda_window_attention_matches_plain(cuda, shape, dtype, tol):
+    gaps = _window_attn_gaps(cuda, shape, dtype)
+    assert max(gaps.values()) < tol, gaps
+
+
+@pytest.mark.gpu
+def test_cuda_hrformer_block_runs_the_kernels(cuda):
+    """A bf16 HRFormer block trains through the kernels on the card, and
+    its output and gradients agree with the same block on the CPU's plain
+    path in f32 to bf16's rounding."""
+    from advmix_tpu_torch.models.pose_hrformer import HRFormerBlock
+    from advmix_tpu_torch.ops.cuda.window_attention import window_attention
+
+    torch.manual_seed(0)
+    block = HRFormerBlock(78, 2, 7, 4.0, 0.0, 0).train()
+    x = torch.randn(4, 78, 16, 12)
+    ref_x = x.clone().requires_grad_(True)
+    ref = block(ref_x)
+    ref.square().mean().backward()
+    ref_grads = {k: p.grad.clone() for k, p in block.named_parameters()}
+    block.zero_grad()
+    card = block.to(cuda)
+    cx = x.to(cuda, torch.bfloat16).requires_grad_(True)
+    before = window_attention.launches
+    out = card(cx)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert window_attention.launches == before + 3
+    ref = ref.detach()
+    assert float((out.detach().float().cpu() - ref).abs().max()
+                 / ref.abs().max()) < 5e-2
+    # each leaf against the larger of its norm and the median leaf's (a
+    # conv bias in front of a BN has a gradient of round-off alone)
+    med = float(torch.tensor([float(g.norm()) for g in
+                              ref_grads.values()]).median())
+    for k, p in card.named_parameters():
+        want = ref_grads[k]
+        assert float((p.grad.cpu() - want).norm()) < 5e-2 * max(
+            float(want.norm()), med), k
