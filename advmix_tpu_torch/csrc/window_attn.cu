@@ -45,450 +45,27 @@
 // writes its partial sums once; window_attn_reduce_kernel adds the blocks'
 // partials in block order. No atomics, so the same inputs give the same
 // bits on every run.
+//
+// Sources. The kernels and their launchers are in window_attn.cuh; each
+// element type and direction is instantiated in a source of its own
+// (window_attn_{fwd,bwd}_{f32,bf16}.cu), which nvcc compiles in parallel.
+// This source holds the two C entries.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-
-namespace {
-
-constexpr int kWin = 7;
-constexpr int kTok = kWin * kWin;                    // 49 tokens a window
-constexpr int kRel = (2 * kWin - 1) * (2 * kWin - 1);  // 169 table rows
-constexpr int kThreads = 64;
-
-struct Geo {
-  int B, H, W, C, heads, top, left, nwh, nww;
-  float scale;
-};
-
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's cast
-}
-
-// the bias value a padded token gets: rounded to T, as the projection of a
-// zero token in T gives it
-template <typename T>
-__device__ __forceinline__ float as_elem(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-// the token index (b, y, x) of token t of window `win`, or -1 if padded
-__device__ __forceinline__ int token_of(const Geo& g, int win, int t) {
-  const int per_img = g.nwh * g.nww;
-  const int b = win / per_img;
-  const int r = win - b * per_img;
-  const int wy = r / g.nww, wx = r - wy * g.nww;
-  const int y = wy * kWin + t / kWin - g.top;
-  const int x = wx * kWin + t % kWin - g.left;
-  if (y < 0 || y >= g.H || x < 0 || x >= g.W) return -1;
-  return (b * g.H + y) * g.W + x;
-}
-
-// bias-table row of query i and key j (Swin's relative_position_index)
-__device__ __forceinline__ int rel_of(int i, int j) {
-  return (i / kWin - j / kWin + kWin - 1) * (2 * kWin - 1) +
-         (i % kWin - j % kWin + kWin - 1);
-}
-
-__device__ __forceinline__ void axpy4(float* acc, float s, float4 b) {
-  acc[0] += s * b.x;
-  acc[1] += s * b.y;
-  acc[2] += s * b.z;
-  acc[3] += s * b.w;
-}
-
-__device__ __forceinline__ float dot4(const float* a, float4 b) {
-  return a[0] * b.x + a[1] * b.y + a[2] * b.z + a[3] * b.w;
-}
-
-// rows [part * C + head * d, + d) of the window's tokens into `dst`
-// (kTok rows of DP floats; 0 past d), padded tokens taking `pad` (the bias'
-// part, or nullptr for zeros)
-template <typename T, int DP>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int ld,
-                                          int col, int d, const int* tok,
-                                          const float* pad) {
-  for (int k = threadIdx.x; k < kTok * DP; k += blockDim.x) {
-    const int t = k / DP, e = k - t * DP;
-    float v = 0.f;
-    if (e < d) {
-      const int o = tok[t];
-      if (o >= 0)
-        v = to_f<T>(src[(long long)o * ld + col + e]);
-      else if (pad != nullptr)
-        v = as_elem<T>(pad[e]);
-    }
-    dst[k] = v;
-  }
-}
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-    window_attn_fwd_kernel(const T* __restrict__ qkv,
-                           const float* __restrict__ bias,
-                           const float* __restrict__ table, T* __restrict__ out,
-                           float* __restrict__ lse, Geo g) {
-  constexpr int D4 = DP / 4;
-  __shared__ float4 ks[kTok * D4];
-  __shared__ float4 vs[kTok * D4];
-  __shared__ float tb[kRel];
-  __shared__ int tok[kTok];
-  const int win = blockIdx.x, head = blockIdx.y;
-  const int C = g.C, d = C / g.heads, ld = 3 * C;
-  for (int t = threadIdx.x; t < kTok; t += blockDim.x)
-    tok[t] = token_of(g, win, t);
-  for (int e = threadIdx.x; e < kRel; e += blockDim.x)
-    tb[e] = table[e * g.heads + head];
-  __syncthreads();
-  load_rows<T, DP>(reinterpret_cast<float*>(ks), qkv, ld, C + head * d, d,
-                   tok, bias + C + head * d);
-  load_rows<T, DP>(reinterpret_cast<float*>(vs), qkv, ld, 2 * C + head * d, d,
-                   tok, bias + 2 * C + head * d);
-  __syncthreads();
-
-  const int i = threadIdx.x;
-  if (i >= kTok) return;
-  const int oi = tok[i];
-  if (oi < 0) return;  // a padded query: cropped away
-  float q[DP];
-  const T* qrow = qkv + (long long)oi * ld + head * d;
-#pragma unroll
-  for (int e = 0; e < DP; ++e) q[e] = e < d ? to_f<T>(qrow[e]) : 0.f;
-
-  float s[kTok];
-  float m = -CUDART_INF_F;
-#pragma unroll
-  for (int j = 0; j < kTok; ++j) {
-    float acc = 0.f;
-#pragma unroll
-    for (int c = 0; c < D4; ++c) acc += dot4(q + 4 * c, ks[j * D4 + c]);
-    s[j] = acc * g.scale + tb[rel_of(i, j)];
-    m = fmaxf(m, s[j]);
-  }
-  float l = 0.f;
-#pragma unroll
-  for (int j = 0; j < kTok; ++j) {
-    s[j] = expf(s[j] - m);
-    l += s[j];
-  }
-  float o[DP];
-#pragma unroll
-  for (int e = 0; e < DP; ++e) o[e] = 0.f;
-#pragma unroll
-  for (int j = 0; j < kTok; ++j) {
-#pragma unroll
-    for (int c = 0; c < D4; ++c) axpy4(o + 4 * c, s[j], vs[j * D4 + c]);
-  }
-  const float inv = 1.f / l;
-  T* orow = out + (long long)oi * C + head * d;
-#pragma unroll
-  for (int e = 0; e < DP; ++e)
-    if (e < d) orow[e] = from_f<T>(o[e] * inv);
-  lse[((long long)win * g.heads + head) * kTok + i] = m + logf(l);
-}
-
-// dynamic shared memory of the backward kernel, in bytes
-template <int DP>
-constexpr int bwd_smem() {
-  return 4 * kTok * DP * 4 + (2 * kTok * kTok + kRel + kTok) * 4 + kTok * 4;
-}
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-    window_attn_bwd_kernel(const T* __restrict__ dout,
-                           const T* __restrict__ qkv,
-                           const float* __restrict__ bias,
-                           const float* __restrict__ table,
-                           const float* __restrict__ lse, T* __restrict__ dqkv,
-                           float* __restrict__ partial, Geo g) {
-  constexpr int D4 = DP / 4;
-  extern __shared__ float4 smem4[];
-  float4* qs = smem4;  // q rows of the window (0 for padded tokens)
-  float4* ks = qs + kTok * D4;   // k rows; then a padded key's dK
-  float4* vs = ks + kTok * D4;   // v rows; then a padded key's dV
-  float4* dos = vs + kTok * D4;  // the output's gradient (0 when padded)
-  float* P = reinterpret_cast<float*>(dos + kTok * D4);  // [i][j]
-  float* dS = P + kTok * kTok;                            // [i][j]
-  float* tb = dS + kTok * kTok;
-  float* lse_s = tb + kRel;
-  int* tok = reinterpret_cast<int*>(lse_s + kTok);
-
-  const int head = blockIdx.y, groups = gridDim.x;
-  const int C = g.C, d = C / g.heads, ld = 3 * C;
-  const int nwin = g.B * g.nwh * g.nww;
-  const int tid = threadIdx.x;
-  for (int e = tid; e < kRel; e += blockDim.x)
-    tb[e] = table[e * g.heads + head];
-  // this block's partial sums over its windows: table rows tid, tid + 64,
-  // tid + 128 (< 169); the bias' k and v parts, entries tid, tid + 64 (< 2d)
-  float acc_tb[3] = {0.f, 0.f, 0.f};
-  float acc_pad[2] = {0.f, 0.f};
-
-  for (int win = blockIdx.x; win < nwin; win += groups) {
-    for (int t = tid; t < kTok; t += blockDim.x) {
-      tok[t] = token_of(g, win, t);
-      lse_s[t] = lse[((long long)win * g.heads + head) * kTok + t];
-    }
-    __syncthreads();
-    load_rows<T, DP>(reinterpret_cast<float*>(qs), qkv, ld, head * d, d, tok,
-                     nullptr);
-    load_rows<T, DP>(reinterpret_cast<float*>(ks), qkv, ld, C + head * d, d,
-                     tok, bias + C + head * d);
-    load_rows<T, DP>(reinterpret_cast<float*>(vs), qkv, ld, 2 * C + head * d,
-                     d, tok, bias + 2 * C + head * d);
-    load_rows<T, DP>(reinterpret_cast<float*>(dos), dout, C, head * d, d, tok,
-                     nullptr);
-    __syncthreads();
-
-    // query rows: P, dS, dQ
-    if (tid < kTok) {
-      const int i = tid, oi = tok[i];
-      if (oi < 0) {
-#pragma unroll
-        for (int j = 0; j < kTok; ++j) {
-          P[i * kTok + j] = 0.f;
-          dS[i * kTok + j] = 0.f;
-        }
-      } else {
-        float q[DP];
-        const float* qf = reinterpret_cast<const float*>(qs) + i * DP;
-#pragma unroll
-        for (int e = 0; e < DP; ++e) q[e] = qf[e];
-        const float li = lse_s[i];
-#pragma unroll
-        for (int j = 0; j < kTok; ++j) {
-          float acc = 0.f;
-#pragma unroll
-          for (int c = 0; c < D4; ++c) acc += dot4(q + 4 * c, ks[j * D4 + c]);
-          P[i * kTok + j] = expf(acc * g.scale + tb[rel_of(i, j)] - li);
-        }
-        float go[DP];
-        const float* gf = reinterpret_cast<const float*>(dos) + i * DP;
-#pragma unroll
-        for (int e = 0; e < DP; ++e) go[e] = gf[e];
-        float dp[kTok];
-        float rowsum = 0.f;
-#pragma unroll
-        for (int j = 0; j < kTok; ++j) {
-          float acc = 0.f;
-#pragma unroll
-          for (int c = 0; c < D4; ++c) acc += dot4(go + 4 * c, vs[j * D4 + c]);
-          dp[j] = acc;
-          rowsum += P[i * kTok + j] * acc;
-        }
-        float dq[DP];
-#pragma unroll
-        for (int e = 0; e < DP; ++e) dq[e] = 0.f;
-#pragma unroll
-        for (int j = 0; j < kTok; ++j) {
-          const float ds = P[i * kTok + j] * (dp[j] - rowsum);
-          dS[i * kTok + j] = ds;
-#pragma unroll
-          for (int c = 0; c < D4; ++c) axpy4(dq + 4 * c, ds, ks[j * D4 + c]);
-        }
-        T* row = dqkv + (long long)oi * ld + head * d;
-#pragma unroll
-        for (int e = 0; e < DP; ++e)
-          if (e < d) row[e] = from_f<T>(dq[e] * g.scale);
-      }
-    }
-    __syncthreads();
-
-    // key rows: dV = P^T dO, dK = scale dS^T Q
-    if (tid < kTok) {
-      const int j = tid, oj = tok[j];
-      float dv[DP], dk[DP];
-#pragma unroll
-      for (int e = 0; e < DP; ++e) {
-        dv[e] = 0.f;
-        dk[e] = 0.f;
-      }
-#pragma unroll 7
-      for (int i = 0; i < kTok; ++i) {
-        const float p = P[i * kTok + j], ds = dS[i * kTok + j];
-#pragma unroll
-        for (int c = 0; c < D4; ++c) {
-          axpy4(dv + 4 * c, p, dos[i * D4 + c]);
-          axpy4(dk + 4 * c, ds, qs[i * D4 + c]);
-        }
-      }
-      if (oj >= 0) {
-        T* row = dqkv + (long long)oj * ld + head * d;
-#pragma unroll
-        for (int e = 0; e < DP; ++e)
-          if (e < d) {
-            row[C + e] = from_f<T>(dk[e] * g.scale);
-            row[2 * C + e] = from_f<T>(dv[e]);
-          }
-      } else {
-        float* kf = reinterpret_cast<float*>(ks) + j * DP;
-        float* vf = reinterpret_cast<float*>(vs) + j * DP;
-#pragma unroll
-        for (int e = 0; e < DP; ++e) {
-          kf[e] = dk[e] * g.scale;
-          vf[e] = dv[e];
-        }
-      }
-    }
-    __syncthreads();
-
-    // the table's entries, and the padded keys' k and v gradients
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const int e = tid + r * kThreads;
-      if (e < kRel) {
-        const int dy = e / (2 * kWin - 1) - (kWin - 1);
-        const int dx = e % (2 * kWin - 1) - (kWin - 1);
-        float acc = 0.f;
-        for (int yi = max(0, dy); yi < min(kWin, kWin + dy); ++yi)
-          for (int xi = max(0, dx); xi < min(kWin, kWin + dx); ++xi)
-            acc += dS[(yi * kWin + xi) * kTok + (yi - dy) * kWin + (xi - dx)];
-        acc_tb[r] += acc;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int e = tid + r * kThreads;
-      if (e < 2 * d) {
-        const float* src = reinterpret_cast<const float*>(e < d ? ks : vs);
-        const int col = e < d ? e : e - d;
-        float acc = 0.f;
-        for (int j = 0; j < kTok; ++j)
-          if (tok[j] < 0) acc += src[j * DP + col];
-        acc_pad[r] += acc;
-      }
-    }
-    __syncthreads();  // the next window overwrites the shared rows
-  }
-
-  const int width = kRel + 2 * d;
-  float* dst = partial + ((long long)head * groups + blockIdx.x) * width;
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-    if (tid + r * kThreads < kRel) dst[tid + r * kThreads] = acc_tb[r];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    if (tid + r * kThreads < 2 * d) dst[kRel + tid + r * kThreads] = acc_pad[r];
-}
-
-// the blocks' partials of each head, added in block order: the table's
-// gradient (169, heads), and the bias' (3C): q part 0, k and v parts from
-// the padded keys
-__global__ void window_attn_reduce_kernel(const float* __restrict__ partial,
-                                          float* __restrict__ dtable,
-                                          float* __restrict__ dbias, int heads,
-                                          int C, int groups) {
-  const int head = blockIdx.x, e = threadIdx.x;
-  const int d = C / heads, width = kRel + 2 * d;
-  if (e >= width) return;
-  const float* src = partial + (long long)head * groups * width + e;
-  float acc = 0.f;
-  for (int gi = 0; gi < groups; ++gi) acc += src[(long long)gi * width];
-  if (e < kRel) {
-    dtable[e * heads + head] = acc;
-  } else {
-    const int k = e - kRel;  // k part [0, d), v part [d, 2d)
-    dbias[(k < d ? C : 2 * C - d) + head * d + k] = acc;
-    if (k < d) dbias[head * d + k] = 0.f;
-  }
-}
-
-template <typename T, int DP>
-int launch_fwd(const void* qkv, const float* bias, const float* table,
-               void* out, float* lse, const Geo& g, cudaStream_t stream) {
-  const dim3 grid(g.B * g.nwh * g.nww, g.heads);
-  window_attn_fwd_kernel<T, DP><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(qkv), bias, table, static_cast<T*>(out), lse, g);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int DP>
-int launch_bwd(const void* dout, const void* qkv, const float* bias,
-               const float* table, const float* lse, void* dqkv,
-               float* partial, float* dtable, float* dbias, const Geo& g,
-               int groups, cudaStream_t stream) {
-  constexpr int smem = bwd_smem<DP>();
-  static bool opted = false;  // one opt-in above 48 KB per instantiation
-  if (!opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        window_attn_bwd_kernel<T, DP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted = true;
-  }
-  const dim3 grid(groups, g.heads);
-  window_attn_bwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(dout), static_cast<const T*>(qkv), bias, table,
-      lse, static_cast<T*>(dqkv), partial, g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int d = g.C / g.heads;
-  const int threads = ((kRel + 2 * d + 31) / 32) * 32;
-  window_attn_reduce_kernel<<<g.heads, threads, 0, stream>>>(
-      partial, dtable, dbias, g.heads, g.C, groups);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// DP: the head dim rounded up to a multiple of 8, up to 40
-#define WA_DISPATCH(dtype, d, CALL)                 \
-  do {                                              \
-    const int dp = ((d) + 7) / 8 * 8;               \
-    if ((dtype) == 0) {                             \
-      using T = float;                              \
-      switch (dp) {                                 \
-        case 8: { constexpr int DP = 8; CALL; }     \
-        case 16: { constexpr int DP = 16; CALL; }   \
-        case 24: { constexpr int DP = 24; CALL; }   \
-        case 32: { constexpr int DP = 32; CALL; }   \
-        case 40: { constexpr int DP = 40; CALL; }   \
-      }                                             \
-    } else if ((dtype) == 1) {                      \
-      using T = __nv_bfloat16;                      \
-      switch (dp) {                                 \
-        case 8: { constexpr int DP = 8; CALL; }     \
-        case 16: { constexpr int DP = 16; CALL; }   \
-        case 24: { constexpr int DP = 24; CALL; }   \
-        case 32: { constexpr int DP = 32; CALL; }   \
-        case 40: { constexpr int DP = 40; CALL; }   \
-      }                                             \
-    }                                               \
-    return static_cast<int>(cudaErrorInvalidValue); \
-  } while (0)
-
-}  // namespace
+#include "window_attn.cuh"
 
 extern "C" int advmix_window_attn_fwd(const void* qkv, const void* bias,
                                       const void* table, void* out, void* lse,
                                       int B, int H, int W, int C, int heads,
                                       int top, int left, int nwh, int nww,
                                       float scale, int dtype, void* stream) {
-  const Geo g{B, H, W, C, heads, top, left, nwh, nww, scale};
-  const int d = C / heads;
-  WA_DISPATCH(dtype, d,
-              return (launch_fwd<T, DP>(
-                  qkv, static_cast<const float*>(bias),
-                  static_cast<const float*>(table), out,
-                  static_cast<float*>(lse), g,
-                  static_cast<cudaStream_t>(stream))));
+  const advmix_wa::Geo g{B, H, W, C, heads, top, left, nwh, nww, scale};
+  const auto run = dtype == 0   ? advmix_wa::fwd_f32
+                   : dtype == 1 ? advmix_wa::fwd_bf16
+                                : nullptr;
+  if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run(qkv, static_cast<const float*>(bias),
+             static_cast<const float*>(table), out, static_cast<float*>(lse),
+             g, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int advmix_window_attn_bwd(const void* dout, const void* qkv,
@@ -499,14 +76,14 @@ extern "C" int advmix_window_attn_bwd(const void* dout, const void* qkv,
                                       int heads, int top, int left, int nwh,
                                       int nww, float scale, int dtype,
                                       int groups, void* stream) {
-  const Geo g{B, H, W, C, heads, top, left, nwh, nww, scale};
-  const int d = C / heads;
-  WA_DISPATCH(dtype, d,
-              return (launch_bwd<T, DP>(
-                  dout, qkv, static_cast<const float*>(bias),
-                  static_cast<const float*>(table),
-                  static_cast<const float*>(lse), dqkv,
-                  static_cast<float*>(partial), static_cast<float*>(dtable),
-                  static_cast<float*>(dbias), g, groups,
-                  static_cast<cudaStream_t>(stream))));
+  const advmix_wa::Geo g{B, H, W, C, heads, top, left, nwh, nww, scale};
+  const auto run = dtype == 0   ? advmix_wa::bwd_f32
+                   : dtype == 1 ? advmix_wa::bwd_bf16
+                                : nullptr;
+  if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run(dout, qkv, static_cast<const float*>(bias),
+             static_cast<const float*>(table), static_cast<const float*>(lse),
+             dqkv, static_cast<float*>(partial), static_cast<float*>(dtable),
+             static_cast<float*>(dbias), g, groups,
+             static_cast<cudaStream_t>(stream));
 }

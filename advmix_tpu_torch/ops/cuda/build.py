@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources in `advmix_tpu_torch/csrc/*.cu` have a plain C interface.
+The sources in `advmix_tpu_torch/csrc/*.cu` have a plain C interface
+(sources may share a `*.cuh` header of kernels that they instantiate).
 `nvcc` compiles each source for `sm_90a` in its own process, all started
 together, and links the objects into one shared library under
 `advmix_tpu_torch/_build/`, which `ctypes` loads. The build happens at the
@@ -72,7 +73,8 @@ def _stale() -> bool:
     if not os.path.exists(LIB):
         return True
     built = os.path.getmtime(LIB)
-    return any(os.path.getmtime(s) > built for s in _sources())
+    headers = glob.glob(os.path.join(CSRC, "*.cuh"))
+    return any(os.path.getmtime(s) > built for s in _sources() + headers)
 
 
 def build(force: bool = False) -> dict:

@@ -1,11 +1,13 @@
 """Windowed multi-head self-attention with a relative-position bias
 (HRFormer's `LocalWindowSelfAttention` around Swin's `WindowMSA`).
 
-The CUDA kernels are `advmix_tpu_torch/csrc/window_attn.cu`. They replace no
-TPU kernel: the JAX package has no attention. They were added for
-HRFormer-B (`models/pose_hrformer.py`), whose every transformer block runs
-`softmax(q k^T * d^-0.5 + B[rel]) v` over 7x7 windows of 49 tokens at head
-dim 39 with an additive learned bias, a shape no fused PyTorch path takes.
+The CUDA kernels are `advmix_tpu_torch/csrc/window_attn.cuh`, entered
+through `csrc/window_attn.cu` and instantiated by `csrc/window_attn_*.cu`.
+They replace no TPU kernel: the JAX package has no attention. They were
+added for HRFormer-B (`models/pose_hrformer.py`), whose every transformer
+block runs `softmax(q k^T * d^-0.5 + B[rel]) v` over 7x7 windows of 49
+tokens at head dim 39 with an additive learned bias, a shape no fused
+PyTorch path takes.
 Left to plain torch ops the block is a chain of pads, permutes, a gathered
 bias and a materialized f32 softmax (43 MB a block call on branch 1 at
 batch 32). Bound: HBM bytes (about 24 FLOP a byte, far under the H100's
@@ -51,7 +53,7 @@ import torch
 from ...utils.profiling import count, span
 from .build import check_cuda_tensor, check_status, library
 
-# the kernels' fixed window and largest head dim (csrc/window_attn.cu)
+# the kernels' fixed window and largest head dim (csrc/window_attn.cuh)
 KERNEL_WINDOW = 7
 MAX_HEAD_DIM = 40
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

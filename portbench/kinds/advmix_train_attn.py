@@ -20,26 +20,14 @@ An AdvMix iteration makes three forwards of D's attention (the teacher's,
 D's on the mix, D's in the G step) and two backwards (D's update; the
 gradient to the mix for G).
 
-FLOPs (`flops_per_iter`, read by `train_mfu`): `flops.advmix_iteration_flops`
-with one formula replaced. torch's `FlopCounterMode` counts a grouped
-convolution's weight gradient as if the convolution were dense: a
-depthwise 3x3 over C channels counts C times its work, and HRFormer's
-depthwise convolutions would give 273 of its 322 GFLOP an image forward and
-backward. Here a convolution's backward counts its forward's FLOPs once
-for the input's gradient and once for the weight's, whatever its groups;
-for every ungrouped convolution that is torch's own count (HRNet-W32's,
-ResNet-50's and the UNet's iterations count the same either way).
+FLOPs (`train_mfu`) are the training kind's, `flops.advmix_iteration_flops`,
+unchanged, so that the metric means the same in every training cell.
 """
 
 from __future__ import annotations
 
-import functools
 import importlib.util
-import math
 
-import torch
-
-from .. import flops
 from . import advmix_train
 
 FORWARDS, BACKWARDS = 3, 2  # per block call and AdvMix iteration
@@ -74,31 +62,6 @@ def window_attn_bytes(model_cfg: dict, batch: int, image_size,
     return total
 
 
-def conv_backward_flop(grad_out_shape, x_shape, w_shape, _bias, _stride,
-                       _padding, _dilation, transposed, _output_padding,
-                       _groups, output_mask, out_shape=None) -> int:
-    """FLOPs of `aten.convolution_backward`: 2 x (the forward's output
-    elements, or a transposed convolution's input elements) x the weight's
-    elements a group, for each of the input's and the weight's gradients
-    asked for."""
-    fwd = 2 * math.prod(x_shape if transposed else grad_out_shape) \
-        * math.prod(w_shape[1:])
-    return fwd * (int(output_mask[0]) + int(output_mask[1]))
-
-
-def advmix_iteration_flops(model_cfg: dict, batch: int, image_size) -> float:
-    """`flops.advmix_iteration_flops`, grouped convolutions' backward
-    counted by `conv_backward_flop`."""
-    counter = flops.FlopCounterMode
-    flops.FlopCounterMode = functools.partial(
-        counter, custom_mapping={
-            torch.ops.aten.convolution_backward: conv_backward_flop})
-    try:
-        return flops.advmix_iteration_flops(model_cfg, batch, image_size)
-    finally:
-        flops.FlopCounterMode = counter
-
-
 class CellRun(advmix_train.CellRun):
     def __init__(self, ctx):
         name = ctx.cfg.MODEL.NAME
@@ -107,10 +70,6 @@ class CellRun(advmix_train.CellRun):
                              f"advmix_tpu_torch/models/{name}.py: it cannot "
                              f"run {ctx.cell.name}")
         super().__init__(ctx)
-
-    def flops_per_iter(self) -> float:
-        return advmix_iteration_flops(self.model_cfg, self.batch,
-                                      self.image_size)
 
     def trace_extra(self) -> dict:
         elem = 2 if str(self.cfg.TRAIN.DTYPE) == "bfloat16" else 4

@@ -363,22 +363,24 @@ def test_w32_names_state_and_outputs_unchanged_by_the_factoring():
 
 
 def test_two_gloo_ranks_match_the_data_parallel_reference():
-    """The four-card cell's kind (`portbench/kinds/advmix_train_dp.py`) at
+    """The several-rank kind (`portbench/kinds/advmix_train_dp.py`) at
     a tiny size on two gloo ranks of the CPU: rank 0 in this process, rank
     1 spawned, the program's eager AdvMix step with its all-reduces against
     `portbench/reference/train_dp.py`, both in float64 (the check's
     witness mode), so that the two agree to 1e-9: in f32 the ranks' sums
     in another order move near-zero gradients that Adam's first step
     scales to a full step, by ~1% at this size."""
+    import dataclasses
+
     from portbench import core
     from portbench.kinds import advmix_train_dp
     from portbench.tests.tiny import tiny_cell
 
     base = tiny_cell("w32-advmix-b32")
-    cell = core.find_cell(core.benchmark(), "w32-advmix-dp4")
-    cell.config = base.config
-    cell.traffic = dict(base.traffic, kind="advmix_train_dp", ranks=2,
-                        batch=2, first_steps=2, warm_steps=1)
+    cell = dataclasses.replace(
+        base, name="w32-advmix-dp2", chips=2,
+        traffic=dict(base.traffic, kind="advmix_train_dp", ranks=2, batch=2,
+                     first_steps=2, warm_steps=1))
     ctx = core.Context(cell=cell, cfg=core.port_config(cell.config),
                        seed=2 ** 31 + 17, device=torch.device("cpu"),
                        float64=True)
