@@ -1,9 +1,89 @@
-// The window-attention kernels and their launchers (design: window_attn.cu),
-// shared by the sources that instantiate them: window_attn_fwd_f32.cu,
-// window_attn_fwd_bf16.cu, window_attn_bwd_f32.cu, window_attn_bwd_bf16.cu.
-// Each is a source of its own so that nvcc compiles them in parallel: as
-// one source, the five head sizes of both element types and both directions
-// took nvcc 121 s for sm_90a, against ~5 s for each other kernel source.
+// Windowed multi-head self-attention with a relative-position bias, forward
+// and backward, for Hopper (sm_90a): per (image, 7x7 window, head),
+// softmax(q k^T * scale + table[rel(i, j)]) v over the window's 49 tokens.
+//
+// Replaces no TPU kernel: the JAX package has no attention. Added for
+// HRFormer-B (advmix_tpu_torch/models/pose_hrformer.py), whose 44
+// branch-blocks a forward run this at head dim 39 with an additive learned
+// bias, a shape no fused PyTorch path takes. The Python wrapper, the custom
+// ops and the plain PyTorch version it is checked against are in
+// advmix_tpu_torch/ops/cuda/window_attention.py.
+//
+// Bound: HBM bytes. A (window, head) problem moves ~15 KB of bf16 q, k, v
+// and output for ~0.37 MFLOP, about 24 FLOP a byte against the H100's ~295
+// (bf16 tensor cores). The least traffic is q, k and v of the real tokens
+// read once and the output written once (forward); q, k, v, the output's
+// gradient and the softmax's log-sum read, and dq, dk, dv written
+// (backward).
+//
+// Layout and addressing, both routes. q, k and v are read straight from the
+// qkv projection's output in token layout, (B, H, W, 3C) with channel
+// part * C + head * d + e; the output (B, H, W, C) and dqkv are written in
+// the same layout. The map is centre-padded to whole windows by addressing
+// alone (token_of): a token outside the map is a padded one, whose key and
+// value are the projection's bias (the source pads with zeros before the
+// projection), rounded to the element type as the projection would give
+// it. A padded query's output is cropped away, so it is not written.
+//
+// Two routes, chosen by the wrapper from the input's dtype; they share the
+// addressing helpers below and no kernel.
+//
+// f32: the "simt" route (window_attn_fwd_kernel, window_attn_bwd_kernel,
+// below; window_attn_{fwd,bwd}_f32.cu). Forward: one block of 64 threads
+// per (window, head); a thread a query row with its 49 scores in registers,
+// keys and values as f32 rows in shared memory read as broadcast float4.
+// Backward: blocks of 64 threads on a grid of (groups, heads), block g
+// walking windows g, g + groups, ...; thread i (a query row) forms P, dS and
+// dQ, thread j (a key row) then dV and dK from P and dS in shared memory.
+//
+// bf16: the "mma" route (window_attn_mma.cuh, window_attn_{fwd,bwd}_bf16.cu),
+// on the tensor cores. A block of 4 warps covers one window at a time for
+// one head and walks a fixed set of windows (blockIdx.x, + gridDim.x, ...)
+// on a grid of about as many blocks as the card holds at once (the
+// kernel's residency, `advmix_window_attn_resident`, spread by the
+// wrapper's `mma_blocks`). Copies: the head's q, k, v (and dO) of a token
+// are runs of d neighbouring channels; the 16-byte chunks that cover each
+// run go to a raw buffer by cp.async, started in batches between the
+// previous window's compute phases; they are unpacked into bf16 tiles of
+// 64 rows (the 49 tokens, then zeros) by 48 columns as aligned 4-byte
+// words, 16 bytes a thread: head h's columns sit at [s, s + d) with
+// s = h d mod 2, the parity its runs start at in every token row (C
+// even), so no element moves alone, and the words' spare halves are
+// zero (for an odd C, one element at a time at s = 0). Padded tokens take
+// the bias or zeros with no load. Outputs are staged in the tiles and
+// written back as words of the runs, a lone element at a run's ends.
+// Products are mma.sync m16n8k16 with f32 sums, one warp a 16-row tile:
+// 49 queries pad to 64, keys to 56 (scores) or 64 (as a depth), the head
+// dim to 48 (depth) or 40 (width). q k^T and dO v^T take their bf16
+// operands as stored, so each product is exact and summed in f32. P (in
+// P v and P^T dO) and dS (in dS k and dS^T q) are f32 and enter as a bf16
+// pair, hi = bf16(x) and lo = bf16(x - hi), in two products: ~16 bits of
+// their mantissa. The softmax's max, sum and log-sum stay f32 (in log2
+// units inside the kernels). The backward takes one pass a window: a row
+// phase (warp w's query rows: P from the log-sums, dP, D = rowsum(P dP),
+// dS, dQ) and a column phase (warp w's key rows: P^T and dP^T recomputed
+// in the transposed layout, dS^T with the row phase's D, dV, dK, written
+// into its own k and v rows), with no serial key loop. What bounds it on
+// the H100 (clock64 phase counts): not the bytes but each window's chain
+// of copy, unpack, compute and write-back at the warps an SM holds,
+// registers and shared memory allowing no more (the launch bounds ask for
+// 4 blocks forward, 3 backward).
+//
+// Backward order of sums, both routes: a block adds its windows' dS into
+// the table's 169 entries and the padded keys' dK and dV into the bias'
+// k and v parts, in a fixed order (mma: dS^T summed per (key, query) over
+// the block's windows in shared memory, each entry owned by one thread,
+// then binned once; a padded key's dK and dV summed over the warp's rows
+// by a fixed butterfly, then into the warp's sums, added over the warps
+// in order); window_attn_reduce_kernel adds the blocks' partials in block
+// order. No atomics: the same inputs give the same bits on every run.
+//
+// Sources. This header holds the declarations, the addressing helpers, the
+// simt kernels and the reduction; window_attn_mma.cuh the mma route's
+// parts; each element type and direction is a source of its own
+// (window_attn_{fwd,bwd}_{f32,bf16}.cu), which nvcc compiles in parallel
+// (as one source, the simt route's five head sizes of both element types
+// took nvcc 121 s for sm_90a); window_attn.cu holds the two C entries.
 
 #pragma once
 
@@ -21,7 +101,8 @@ struct Geo {
 int fwd_f32(const void* qkv, const float* bias, const float* table, void* out,
             float* lse, const Geo& g, cudaStream_t stream);
 int fwd_bf16(const void* qkv, const float* bias, const float* table,
-             void* out, float* lse, const Geo& g, cudaStream_t stream);
+             void* out, float* lse, const Geo& g, int blocks,
+             cudaStream_t stream);
 int bwd_f32(const void* dout, const void* qkv, const float* bias,
             const float* table, const float* lse, void* dqkv, float* partial,
             float* dtable, float* dbias, const Geo& g, int groups,
@@ -30,6 +111,9 @@ int bwd_bf16(const void* dout, const void* qkv, const float* bias,
              const float* table, const float* lse, void* dqkv,
              float* partial, float* dtable, float* dbias, const Geo& g,
              int groups, cudaStream_t stream);
+// blocks of the bf16 (mma) kernel that the current device holds at once
+int fwd_bf16_resident(int* blocks);
+int bwd_bf16_resident(int* blocks);
 
 }  // namespace advmix_wa
 
@@ -48,20 +132,12 @@ template <>
 __device__ __forceinline__ float to_f<float>(float v) {
   return v;
 }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's cast
 }
 
 // the bias value a padded token gets: rounded to T, as the projection of a
@@ -392,6 +468,16 @@ __global__ void window_attn_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
+// the reduction of a backward's partials, (heads, groups, 169 + 2d)
+inline int reduce_partials(const float* partial, float* dtable, float* dbias,
+                           const Geo& g, int groups, cudaStream_t stream) {
+  const int d = g.C / g.heads;
+  const int threads = ((kRel + 2 * d + 31) / 32) * 32;
+  window_attn_reduce_kernel<<<g.heads, threads, 0, stream>>>(
+      partial, dtable, dbias, g.heads, g.C, groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DP>
 int launch_fwd(const void* qkv, const float* bias, const float* table,
                void* out, float* lse, const Geo& g, cudaStream_t stream) {
@@ -421,11 +507,7 @@ int launch_bwd(const void* dout, const void* qkv, const float* bias,
       lse, static_cast<T*>(dqkv), partial, g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int d = g.C / g.heads;
-  const int threads = ((kRel + 2 * d + 31) / 32) * 32;
-  window_attn_reduce_kernel<<<g.heads, threads, 0, stream>>>(
-      partial, dtable, dbias, g.heads, g.C, groups);
-  return static_cast<int>(cudaGetLastError());
+  return reduce_partials(partial, dtable, dbias, g, groups, stream);
 }
 
 // DP: the head dim rounded up to a multiple of 8, up to 40

@@ -30,23 +30,43 @@ the padded keys' gradients, two launches), their CPU implementations are
 the plain versions in this module, and their fake implementations give the
 shapes. For a CUDA tensor it launches or raises; it never falls back.
 bf16 or f32 in, f32 softmax and sums, the input's dtype out.
-`window_attention.launches` counts the launches, and each call runs in an
-`advmix.window_attn` span with one `advmix.count.window_attn` event a
-launch while a profiler records. Everything stays on the device, so a CUDA
-graph captures it.
 
-Backward order of sums: each (window, head) block's score gradients go to
-the bias table's 169 entries in a fixed order; a block walks a fixed set
-of windows and keeps its own partial sums; a second kernel adds the
-blocks' partials in block order. No atomics: the gradients are the same
-bits from run to run, and differ from the plain version's by the order of
-f32 sums only (a relative ~1e-6 of the table's gradient per thousand
-windows summed).
+Two routes (`kernel_route`, from the input's dtype; design in
+`csrc/window_attn.cuh`). f32 takes the "simt" kernels: a thread a query
+row, f32 FMAs, for f32 configurations and the card's 1e-5 tests. bf16
+takes the "mma" kernels, on the tensor cores: a block covers a window for
+one head and walks a fixed set of windows, on a grid of about as many
+blocks as the card holds at once (`mma_blocks` of the kernel's residency,
+which the C side reads from the device). A token's q, k, v of the head
+are runs of neighbouring channels, copied as whole 16-byte chunks into
+shared memory while the previous window computes, then into bf16 tiles as
+aligned words (the columns shifted by the parity the runs start at); one
+warp a 16-row tile runs `mma.sync` m16n8k16 with f32 sums; P and dS, which
+are f32, enter the products as a pair of bf16 (hi = bf16(x), lo = bf16(x -
+hi): ~16 bits of their mantissa). What bounds them is each window's chain
+of copy, compute and write-back at the warps an SM holds, not the bytes.
+`window_attention.launches` counts the launches and
+`window_attention.routes` the same launches by the route of their call,
+the backward's reduction included (so the two routes' counts add up to
+`launches`); each call runs in an `advmix.window_attn` span with one
+`advmix.count.window_attn` event a launch, and one
+`advmix.count.window_attn_mma` a tensor-core kernel (the reduction is
+none), while a profiler records. Everything stays on the device, so a
+CUDA graph captures it.
+
+Backward order of sums, both routes: a block adds its windows' score
+gradients into the bias table's 169 entries and the padded keys' k and v
+gradients into the bias, in a fixed order, and keeps its own partial
+sums; a second kernel adds the blocks' partials in block order. No
+atomics: the gradients are the same bits from run to run, and differ from
+the plain version's by the order of f32 sums only (a relative ~1e-6 of the
+table's gradient per thousand windows summed).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -207,6 +227,36 @@ def _geometry(qkv, heads: int, window: int) -> list:
     return [b, h, w, c3 // 3, heads, top, left, nh, nw]
 
 
+def kernel_route(dtype: torch.dtype) -> str:
+    """"mma" (the tensor-core kernels) for bf16, "simt" for f32."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def mma_blocks(windows: int, heads: int, resident: int) -> int:
+    """Blocks each head's windows are spread over (the mma grid's x), of
+    the `resident` blocks the card holds at once in all: about
+    resident / heads, each walking the same number of windows (the last
+    fewer). A function of the shapes and the kernel's residency on the
+    card, so the backward's order of sums is too."""
+    per_head = -(-resident // heads)
+    per_block = -(-windows // max(1, min(windows, per_head)))
+    return -(-windows // per_block)
+
+
+@functools.cache
+def mma_resident(device: int, backward: bool) -> int:
+    """Blocks of the mma forward's (backward's) kernel that card `device`
+    holds at once over all its SMs, as the kernel's registers, launch
+    bounds and shared memory allow (`advmix_window_attn_resident`). Asked
+    once a process, at the first call, before any graph capture."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = library().advmix_window_attn_resident(
+            int(backward), ctypes.addressof(blocks))
+    check_status("window_attn_resident", rc)
+    return blocks.value
+
+
 def backward_groups(windows: int, heads: int) -> int:
     """Blocks a head's backward spreads its windows over: about four
     resident blocks on each of the H100's 132 SMs in all, and no more
@@ -227,11 +277,23 @@ def _attn_op(qkv: torch.Tensor, bias: torch.Tensor, table: torch.Tensor,
     return window_attention_plain(qkv, bias, table, heads, window)
 
 
+def _counted(route: str, launches: int) -> None:
+    window_attention.launches += launches
+    window_attention.routes[route] += launches
+    for _ in range(launches):
+        count("window_attn")
+    if route == "mma":
+        count("window_attn_mma")
+
+
 @_attn_op.register_kernel("cuda")
 def _attn_cuda(qkv, bias, table, heads, window):
     c, d = _check_launch(qkv, bias, table, heads, window)
     geo = _geometry(qkv, heads, window)
     nwin = geo[0] * geo[7] * geo[8]
+    route = kernel_route(qkv.dtype)
+    blocks = (mma_blocks(nwin, heads, mma_resident(qkv.device.index, False))
+              if route == "mma" else 0)
     out = torch.empty(qkv.shape[:3] + (c,), dtype=qkv.dtype,
                       device=qkv.device)
     lse = torch.empty((nwin, heads, window * window), dtype=torch.float32,
@@ -241,10 +303,10 @@ def _attn_cuda(qkv, bias, table, heads, window):
             rc = library().advmix_window_attn_fwd(
                 qkv.data_ptr(), bias.data_ptr(), table.data_ptr(),
                 out.data_ptr(), lse.data_ptr(), *geo,
-                ctypes.c_float(d ** -0.5), _DTYPES[qkv.dtype], _stream(qkv))
+                ctypes.c_float(d ** -0.5), _DTYPES[qkv.dtype], blocks,
+                _stream(qkv))
         check_status("window_attn_fwd", rc)
-        window_attention.launches += 1
-        count("window_attn")
+        _counted(route, 1)
     return out, lse
 
 
@@ -282,7 +344,9 @@ def _attn_bwd_cuda(grad_out, qkv, bias, table, lse, heads, window):
         raise ValueError("window_attention backward: grad_out "
                          f"{tuple(grad_out.shape)} or lse {tuple(lse.shape)} "
                          f"do not fit qkv {tuple(qkv.shape)}")
-    groups = backward_groups(nwin, heads)
+    route = kernel_route(qkv.dtype)
+    groups = (mma_blocks(nwin, heads, mma_resident(qkv.device.index, True))
+              if route == "mma" else backward_groups(nwin, heads))
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty(3 * c, dtype=torch.float32, device=qkv.device)
     dtable = torch.empty_like(table)
@@ -296,9 +360,7 @@ def _attn_bwd_cuda(grad_out, qkv, bias, table, lse, heads, window):
             ctypes.c_float(d ** -0.5), _DTYPES[qkv.dtype], groups,
             _stream(qkv))
     check_status("window_attn_bwd", rc)
-    window_attention.launches += 2
-    count("window_attn")
-    count("window_attn")
+    _counted(route, 2)
     return dqkv, dbias, dtable
 
 
@@ -347,3 +409,4 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor | None,
 
 
 window_attention.launches = 0
+window_attention.routes = {"mma": 0, "simt": 0}

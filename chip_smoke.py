@@ -553,12 +553,52 @@ def window_attn_bytes(b, h, w, c, heads, elem=2) -> tuple:
     return 4 * t * c * elem, 7 * t * c * elem + 4 * t * heads
 
 
+def window_attn_check(dev, shape, dtype, tol) -> tuple:
+    """One forward and one backward call of the kernels at `shape`
+    (B, H, W, C, heads) in `dtype`, held against the plain versions to
+    `tol` of each output's range, and counted under the route the dtype
+    takes (3 launches); returns the inputs, the log-sum and the errors."""
+    from advmix_tpu_torch.ops.cuda import window_attention as wa
+
+    b, h, w, c, heads = shape
+    ops = torch.ops.advmix_tpu_torch
+    qkv, bias, table, dout = window_attn_inputs(dev, b, h, w, c, heads,
+                                                dtype)
+    route = wa.kernel_route(dtype)
+    before = wa.window_attention.launches
+    routed = wa.window_attention.routes[route]
+    out, lse = ops.window_attn(qkv, bias, table, heads, 7)
+    dq, db, dt = ops.window_attn_backward(dout, qkv, bias, table, lse,
+                                          heads, 7)
+    torch.cuda.synchronize()
+    if wa.window_attention.launches != before + 3 or \
+            wa.window_attention.routes[route] != routed + 3:
+        raise AssertionError(f"window_attn {shape} {dtype}: the launches "
+                             f"were not counted under route {route}")
+    po, pl = wa.window_attention_plain(qkv, bias, table, heads, 7)
+    pq, pb, pt = wa.window_attention_plain_backward(dout, qkv, bias,
+                                                    table, heads, 7)
+    err = {"out": float((out.float() - po.float()).abs().max()
+                        / po.float().abs().max()),
+           "dqkv": float((dq.float() - pq.float()).abs().max()
+                         / pq.float().abs().max()),
+           "dbias": float((db - pb).abs().max() / pb.abs().max()),
+           "dtable": float((dt - pt).abs().max() / pt.abs().max())}
+    for k, v in err.items():
+        if not v < tol:
+            raise AssertionError(f"window_attn {shape} {dtype} {k}: max "
+                                 f"error {v} of the range, over {tol}")
+    return (qkv, bias, table, dout), lse, err
+
+
 def window_attn_phase(dev, flush) -> dict:
     """The window-attention kernels against their plain versions at
-    HRFormer-B's four branch shapes (batch 32, bf16), then their times in
-    turns with the plain versions' and, as the yardstick only,
-    `scaled_dot_product_attention` with the bias as a float mask on the
-    already partitioned windows (`library_ms`; the port never calls it)."""
+    HRFormer-B's four branch shapes (batch 32), in bf16 (the tensor-core
+    route) and f32 (the simt route, to the card tests' 1e-5), then the
+    bf16 kernels' times in turns with the plain versions' and, as the
+    yardstick only, `scaled_dot_product_attention` with the bias as a float
+    mask on the already partitioned windows (`library_ms`; the port never
+    calls it)."""
     import torch.nn.functional as F
 
     from advmix_tpu_torch.ops.cuda import window_attention as wa
@@ -567,27 +607,10 @@ def window_attn_phase(dev, flush) -> dict:
     rows = []
     for (h, w, c, heads) in WINDOW_ATTN_SHAPES:
         b = 32
-        qkv, bias, table, dout = window_attn_inputs(dev, b, h, w, c, heads)
-        before = wa.window_attention.launches
-        out, lse = ops.window_attn(qkv, bias, table, heads, 7)
-        dq, db, dt = ops.window_attn_backward(dout, qkv, bias, table, lse,
-                                              heads, 7)
-        torch.cuda.synchronize()
-        if wa.window_attention.launches != before + 3:
-            raise AssertionError("window_attn: the launches were not counted")
-        po, pl = wa.window_attention_plain(qkv, bias, table, heads, 7)
-        pq, pb, pt = wa.window_attention_plain_backward(dout, qkv, bias,
-                                                        table, heads, 7)
-        err = {"out": float((out.float() - po.float()).abs().max()
-                            / po.float().abs().max()),
-               "dqkv": float((dq.float() - pq.float()).abs().max()
-                             / pq.float().abs().max()),
-               "dbias": float((db - pb).abs().max() / pb.abs().max()),
-               "dtable": float((dt - pt).abs().max() / pt.abs().max())}
-        for k, v in err.items():
-            if not v < 2e-2:
-                raise AssertionError(f"window_attn {(b, h, w, c, heads)} "
-                                     f"{k}: max error {v} of the range")
+        _, _, err32 = window_attn_check(dev, (b, h, w, c, heads),
+                                        torch.float32, 1e-5)
+        (qkv, bias, table, dout), lse, err = window_attn_check(
+            dev, (b, h, w, c, heads), torch.bfloat16, 2e-2)
         fb, bb = window_attn_bytes(b, h, w, c, heads)
         nh, nw = wa.num_windows(h, w, 7)
         d = c // heads
@@ -610,7 +633,8 @@ def window_attn_phase(dev, flush) -> dict:
                    fwd_ms=t["fwd"], bwd_ms=t["bwd"],
                    fwd_bound_ms=fb / 3.35e9, bwd_bound_ms=bb / 3.35e9,
                    plain_fwd_ms=t["plain fwd"], plain_bwd_ms=t["plain bwd"],
-                   library_fwd_ms=t["library fwd"], max_rel_err=err)
+                   library_fwd_ms=t["library fwd"], max_rel_err=err,
+                   max_rel_err_f32=err32)
         log(f"[kernels] window_attn {row['shape']}: fwd {t['fwd']:.4f} ms "
             f"(bound {row['fwd_bound_ms']:.4f}, "
             f"{100 * row['fwd_bound_ms'] / t['fwd']:.1f}%), bwd "
@@ -618,7 +642,7 @@ def window_attn_phase(dev, flush) -> dict:
             f"{100 * row['bwd_bound_ms'] / t['bwd']:.1f}%); plain "
             f"{t['plain fwd']:.4f} / {t['plain bwd']:.4f} ms; SDPA with a "
             f"float mask on partitioned windows {t['library fwd']:.4f} ms; "
-            f"errors {err}")
+            f"errors {err}, f32 {err32}")
         rows.append(row)
     return {"window_attn": rows}
 

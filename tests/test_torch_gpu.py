@@ -26,10 +26,12 @@ halves of its batch, within 1e-9 of the update's range. Window attention
 (`csrc/window_attn.cu`) against its plain version on the card: in f32 the
 output and every gradient within 1e-5 of their range (the same f32
 arithmetic summed in another order, and `expf` against torch's `exp`); in
-bf16 within 1e-2 of the range (both compute in f32 from the same bf16
-inputs, but each rounds its bf16 outputs, and bf16 holds 8 bits: 2^-8 of a
-value); the backward gives the same bits twice (no atomics), and a model
-block's attention goes through the kernels forward and backward.
+bf16 within 1e-2 of the range (both take the same bf16 inputs and sum in
+f32, the tensor-core kernels with P and dS as a pair of bf16, ~16 bits,
+and each rounds its bf16 outputs, and bf16 holds 8 bits: 2^-8 of a
+value); bf16 calls take the tensor-core route and f32 calls the f32 one;
+the backward gives the same bits twice (no atomics), and a model block's
+attention goes through the kernels forward and backward.
 """
 
 import numpy as np
@@ -768,10 +770,13 @@ def test_cuda_two_ranks_match_one_rank_float64(cuda, tmp_path):
     assert gaps["d"] < 1e-9 and gaps["g"] < 1e-9, gaps
 
 
-# (B, H, W, C, heads): HRFormer-B's branch 1 and branch 4 at batch 32, and
-# small maps that leave most of a window padded, at head dims 8 to 40
-WINDOW_ATTN_CASES = [(32, 64, 48, 78, 2), (32, 8, 6, 624, 16),
-                     (3, 9, 11, 24, 3), (2, 5, 3, 96, 3), (1, 14, 7, 64, 2)]
+# (B, H, W, C, heads): HRFormer-B's four branches at batch 32, small maps
+# that leave most of a window padded, at head dims 8 to 40, and an odd C,
+# whose token runs the bf16 kernels copy an element at a time
+WINDOW_ATTN_CASES = [(32, 64, 48, 78, 2), (32, 32, 24, 156, 4),
+                     (32, 16, 12, 312, 8), (32, 8, 6, 624, 16),
+                     (3, 9, 11, 24, 3), (2, 5, 3, 96, 3), (1, 14, 7, 64, 2),
+                     (2, 7, 9, 39, 1)]
 
 
 def _window_attn_gaps(cuda, shape, dtype):
@@ -782,12 +787,16 @@ def _window_attn_gaps(cuda, shape, dtype):
     qkv, bias, table, dout = window_attn_inputs(cuda, b, h, w, c, heads,
                                                 dtype, seed=sum(shape))
     ops = torch.ops.advmix_tpu_torch
+    route = "mma" if dtype == torch.bfloat16 else "simt"
+    assert wa.kernel_route(dtype) == route
     before = wa.window_attention.launches
+    routed = wa.window_attention.routes[route]
     out, lse = ops.window_attn(qkv, bias, table, heads, 7)
     grads = ops.window_attn_backward(dout, qkv, bias, table, lse, heads, 7)
     again = ops.window_attn_backward(dout, qkv, bias, table, lse, heads, 7)
     torch.cuda.synchronize()
     assert wa.window_attention.launches == before + 5
+    assert wa.window_attention.routes[route] == routed + 5
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
     po, pl = wa.window_attention_plain(qkv, bias, table, heads, 7)
     plain = wa.window_attention_plain_backward(dout, qkv, bias, table, heads,

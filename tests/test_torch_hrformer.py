@@ -243,6 +243,33 @@ def test_window_attention_ops_check():
     assert wa.window_attention.launches == before
 
 
+# (H, W, C, heads): HRFormer-B's four branches, and the card tests' small
+# maps and odd C
+@pytest.mark.parametrize("shape", [(64, 48, 78, 2), (32, 24, 156, 4),
+                                   (16, 12, 312, 8), (8, 6, 624, 16),
+                                   (9, 11, 24, 3), (5, 3, 96, 3),
+                                   (14, 7, 64, 2), (7, 9, 39, 1)])
+def test_window_attention_route_and_head_group(shape):
+    """f32 takes the simt kernels, bf16 the tensor-core ones, a head a
+    block, whose token runs fit the kernels' 40 elements; at batch 32 and
+    any residency the card may report, the mma grid walks each window
+    once, with at least one block a head and no more than its share of
+    the resident blocks."""
+    h, w, c, heads = shape
+    assert wa.kernel_route(torch.float32) == "simt"
+    assert wa.kernel_route(torch.bfloat16) == "mma"
+    assert c % heads == 0 and c // heads <= wa.MAX_HEAD_DIM
+    nh, nw = wa.num_windows(h, w, 7)
+    windows = 32 * nh * nw
+    for resident in (1, 7, 132 * 3, 132 * 4, 132 * 5):
+        blocks = wa.mma_blocks(windows, heads, resident)
+        assert 1 <= blocks <= windows
+        assert blocks <= max(1, -(-resident // heads))
+        walked = sorted(w for x in range(blocks)
+                        for w in range(x, windows, blocks))
+        assert walked == list(range(windows))
+
+
 def test_window_attention_kernel_limits_raise_on_a_card_only():
     with pytest.raises(ValueError):
         wa.window_attention(torch.zeros(1, 4, 4, 12, device="meta"), None,
